@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, patch classification with the zoo model
-breast-tumor-resnet34.tcga-brca at full width (350 px patches, resize 224,
-ResNet34, 2 classes, seeded random weights), and holds every hand-written
-kernel against its plain torch version. Phases; any failure exits non-zero
-and prints no result line:
+Drives the port's two paths at full width and depth with seeded random
+weights: patch classification with the zoo model breast-tumor-resnet34.
+tcga-brca (350 px patches, resize 224, ResNet34, 2 classes), and the CellViT
+cell path with CellViT-SAM-H-x40 (ViT-H, 32 blocks, windowed and global
+rel-pos attention) and CellViT-256-x40 (ViT-S/16 with a cls token). Holds
+every hand-written kernel against its plain torch version. Phases; any
+failure exits non-zero and prints no result line:
 
   (a) the card's name and power limit; no CUDA -> exit 1;
   (b) build every kernel from the checkout's sources (one nvcc per source);
@@ -19,7 +21,22 @@ and prints no result line:
       with the two-deep window of run_inference; patches/s, peak memory, and
       the kernels' launch counts over that run;
   (e) parity on the card vs the same engine on the CPU (8 patches, 1e-3),
-      mixed vs parity (0.01), every row finite and summing to 1.
+      mixed vs parity (0.01), every row finite and summing to 1;
+  (f) K2 (fused window attention with SAM rel-pos) vs its plain version on
+      the card, f32 and bf16, at B=32 at the three shapes the cell path gives
+      it (SAM-H windowed and global, ViT-256's 257-token row); its time
+      beside its bound, its plain version and scaled_dot_product_attention
+      with the rel-pos bias as attn_mask;
+  (g) CellEngine for CellViT-SAM-H-x40 (init_random, seed 0), parity and
+      bf16: 8 batches of B=32 seeded uint8 patches, one batch deep through
+      device_postprocess -> scatter into a canvas on a 16x16 patch grid;
+      patches/s, peak memory, K2 launches (32 per batch), device ms of the
+      forward and of the post-process, K2's share of the forward's device time;
+  (h) the same for CellViT-256-x40 (12 K2 launches per batch);
+  (i) cell results: parity on the card vs the same engine on the CPU (2
+      patches, maps <= 1e-3); bf16 vs parity canvases (max |d| of NP, HV, TP;
+      share of pixels whose NP > 0.5 decision or TP argmax differs; NP
+      decisions agree on >= 99%); every map finite, TP rows summing to 1.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -40,14 +57,31 @@ MODEL = "breast-tumor-resnet34.tcga-brca"
 N_BATCHES = 20
 BATCH = 256
 SEED = 0
+CELL_MODELS = (("CellViT-SAM-H-x40", 32), ("CellViT-256-x40", 12))  # (model, K2 launches/batch)
+CELL_BATCHES = 8
+CELL_BATCH = 32
+CELL_GRID = 16  # the cell canvas is a CELL_GRID x CELL_GRID grid of patches
 
-# Data-sheet rates by card name: (bytes/s, fp32 FLOP/s outside the tensor cores).
+# Data-sheet rates by card name: (bytes/s, fp32 FLOP/s outside the tensor
+# cores, dense bf16 tensor-core FLOP/s).
 CARD_RATES = {
-    "H100 80GB HBM3": (3.35e12, 67e12),  # H100 SXM
-    "H100 PCIe": (2.0e12, 51e12),
-    "H100 NVL": (3.9e12, 60e12),
-    "H200": (4.8e12, 67e12),
+    "H100 80GB HBM3": (3.35e12, 67e12, 989e12),  # H100 SXM
+    "H100 PCIe": (2.0e12, 51e12, 756e12),
+    "H100 NVL": (3.9e12, 60e12, 835e12),
+    "H200": (4.8e12, 67e12, 989e12),
 }
+# K2 at the cell path's shapes: (name, qkv grid HP x WP, dim, heads, window, rel-pos).
+K2_SHAPES = (
+    ("sam_h_windowed", (28, 28), 1280, 16, 14, True),
+    ("sam_h_global", (16, 16), 1280, 16, 0, True),
+    ("vit_256", (1, 257), 384, 6, 0, False),
+)
+# f32: the same sums in another order. bf16: JAX's bar for its bf16 kernel
+# (tests/test_flash_attn.py, 5e-2): the rel values are rounded to bf16 after
+# sums in another order, so a pair can land one bf16 ulp apart (2**-5 at
+# |rel| >= 4 with these tables), which moves a score by as much; the output
+# is bf16 (one ulp is 2**-7 relative) and K2 rounds P before normalising it.
+K2_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (5e-2, 5e-2)}
 
 
 def _smi(query: str) -> str:
@@ -89,13 +123,111 @@ def k1_bound(b, h, w, oh, ow, out_bytes, rates):
     once; 2 FLOP per tap of each pass plus the affine, at fp32 peak."""
     from wsinsight_tpu_torch.ops.fused_preprocess import _band
 
-    bw, flops_peak = rates
+    bw, flops_peak = rates[:2]
     nbytes = b * h * w * 3 + b * oh * ow * 3 * out_bytes
     taps_h = int(_band(w, ow)[1].sum())
     taps_v = int(_band(h, oh)[1].sum())
     flops = 2 * b * 3 * (h * taps_h + ow * taps_v) + 2 * b * oh * ow * 3
     t_bytes, t_ops = nbytes / bw * 1e3, flops / flops_peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k2_bound(qkv, out, rh, rw, heads, window, rates):
+    """(least ms, what bounds it) for K2: qkv (and the rel-pos tables) read
+    once, the output written once; 4*n^2*hd FLOP per (window, head) for
+    QK^T and PV plus 2*n*(ah+aw)*hd for rel-pos, at the dtype's peak (bf16
+    tensor cores, or f32 FMAs)."""
+    import torch
+
+    b, hp, wp, c3 = qkv.shape
+    hd = c3 // 3 // heads
+    ah, aw = (window, window) if window else (hp, wp)
+    n, nw = ah * aw, (hp // ah) * (wp // aw)
+    nbytes = sum(t.numel() * t.element_size() for t in (qkv, out, rh, rw) if t is not None)
+    flops = b * nw * heads * (4 * n * n * hd + (2 * n * (ah + aw) * hd if rh is not None else 0))
+    peak = rates[2] if qkv.dtype == torch.bfloat16 else rates[1]
+    t_bytes, t_ops = nbytes / rates[0] * 1e3, flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k2_inputs(shape, dim, heads, window, rel, dtype, dev, b, rng):
+    """Seeded qkv and expanded rel-pos tables, as Attention hands them over."""
+    import torch
+
+    (hp, wp), hd = shape, dim // heads
+    qkv = torch.from_numpy(rng.standard_normal((b, hp, wp, 3 * dim), dtype=np.float32))
+    qkv = qkv.to(dev, dtype)
+    if not rel:
+        return qkv, None, None
+    tables = []
+    for a in (window or hp, window or wp):
+        table = rng.standard_normal((2 * a - 1, hd), dtype=np.float32) * 0.5
+        idx = np.add.outer(np.arange(a), -np.arange(a)) + a - 1
+        tables.append(torch.from_numpy(table[idx]).to(dev, dtype))
+    return qkv, tables[0], tables[1]
+
+
+def sdpa_call(qkv, rh, rw, heads, window, scale):
+    """scaled_dot_product_attention on K2's q/k/v (window-major, head-major)
+    with the rel-pos bias materialised as attn_mask: the library yardstick,
+    used nowhere in the port. Returns the call, with its inputs prepared."""
+    import torch
+    import torch.nn.functional as F
+
+    b, hp, wp, c3 = qkv.shape
+    dim, hd = c3 // 3, c3 // 3 // heads
+    ah, aw = (window, window) if window else (hp, wp)
+    gh, gw, n = hp // ah, wp // aw, ah * aw
+    x = qkv.reshape(b, gh, ah, gw, aw, 3, heads, hd).permute(5, 0, 1, 3, 6, 2, 4, 7)
+    q, k, v = (t.reshape(b * gh * gw, heads, n, hd).contiguous() for t in x)
+    mask = None
+    if rh is not None:
+        rq = q.float().reshape(-1, heads, ah, aw, hd)
+        rel_h = torch.einsum("bnhwc,hkc->bnhwk", rq, rh.float())
+        rel_w = torch.einsum("bnhwc,wkc->bnhwk", rq, rw.float())
+        mask = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(-1, heads, n, n)
+        mask = mask.to(qkv.dtype).contiguous()
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+
+
+def run_cells(engine, stitcher, data, coords):
+    """The cell path's device half, one batch deep, as run_cell_inference
+    drives it. Returns the seconds on the host clock."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pending = None
+    for images, xy in zip(data, coords):
+        pred = engine.dispatch(engine.put(images))
+        maps = stitcher.device_postprocess(pred)
+        if pending is not None:
+            stitcher.scatter(*pending)
+        pending = (maps, xy, len(images))
+    stitcher.scatter(*pending)
+    return time.perf_counter() - t0
+
+
+def k2_share(engine, x) -> float:
+    """K2's share of the device time of one forward, from a profiler trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            engine.dispatch(x)
+            torch.cuda.synchronize()
+        total = k2 = 0.0
+        for evt in prof.key_averages():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            t = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0.0)
+            total += t
+            k2 += t if "window_attention_kernel" in evt.key else 0.0
+        return k2 / total if total else float("nan")
+    except Exception as err:  # the trace is a report, not a check
+        print(f"    profiler trace failed: {err!r}")
+        return float("nan")
 
 
 def main() -> int:
@@ -105,7 +237,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
-    from wsinsight_tpu_torch.engine import ClassifierEngine
+    from wsinsight_tpu_torch.engine import CellEngine, ClassifierEngine, TileRemapStitcher
+    from wsinsight_tpu_torch.ops.flash_attn import window_attention, window_attention_reference
     from wsinsight_tpu_torch.ops import cuda_build
     from wsinsight_tpu_torch.ops.fused_preprocess import (
         fused_preprocess,
@@ -119,10 +252,11 @@ def main() -> int:
     rates = next((r for k, r in CARD_RATES.items() if k in kind), CARD_RATES["H100 80GB HBM3"])
     print(card)
     print(f"(a) torch {torch.__version__} CUDA {torch.version.cuda}; {kind};"
-          f" data-sheet rates {rates[0] / 1e12:.2f} TB/s, fp32 {rates[1] / 1e12:.0f} TFLOP/s")
+          f" data-sheet rates {rates[0] / 1e12:.2f} TB/s, fp32 {rates[1] / 1e12:.0f} TFLOP/s,"
+          f" bf16 {rates[2] / 1e12:.0f} TFLOP/s")
     check = Checks()
     dev = torch.device("cuda", 0)
-    kernels = {fused_preprocess: "fused_preprocess"}
+    kernels = {fused_preprocess: "fused_preprocess", window_attention: "window_attention"}
 
     # (b) ------------------------------------------------------------------
     t0 = time.perf_counter()
@@ -200,6 +334,7 @@ def main() -> int:
         probs[mixed] = np.concatenate(outs)
         stats[mixed] = (N_BATCHES * BATCH / secs, torch.cuda.max_memory_allocated() / 2**30)
     launches = {name: fn.launches for fn, name in kernels.items()}
+    check(launches["window_attention"] == 0, "K2 launches over the classifier path: 0")
     for mixed in engines:
         name = "mixed_precision (bf16, K1)" if mixed else "parity (fp32, exact resize)"
         print(f"    {name}: {stats[mixed][0]:.1f} patches/s, peak {stats[mixed][1]:.2f} GiB")
@@ -235,11 +370,141 @@ def main() -> int:
         check(ok, f"{'mixed' if mixed else 'parity'}: {p.shape} finite, rows sum to 1,"
               f" probabilities in [{p.min():.3f}, {p.max():.3f}]")
     tmp.cleanup()
+    del data, engines, cpu_engine
+    torch.cuda.empty_cache()
+
+    # (f) ------------------------------------------------------------------
+    print(f"(f) K2 vs its plain version, B={CELL_BATCH}")
+    k2 = {"max_abs_err": 0.0, "shapes": []}
+    for name, shape, dim, heads, window, rel in K2_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            qkv, rh, rw = k2_inputs(shape, dim, heads, window, rel, dt, dev, CELL_BATCH, rng)
+            scale = (dim // heads) ** -0.5
+            got = window_attention(qkv, heads, window, scale, rh, rw)
+            want = window_attention_reference(qkv, heads, window, scale, rh, rw)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            atol, rtol = K2_TOL[str(dt)[6:]]
+            excess = float((diff - atol - rtol * want.float().abs()).max())
+            k2["max_abs_err"] = max(k2["max_abs_err"], float(diff.max()))
+            check(got.shape == want.shape and bool(torch.isfinite(got).all()) and excess <= 0,
+                  f"{name} {str(dt)[6:]}: max |d| {float(diff.max()):.3g}"
+                  f" (<= {atol:g} + {rtol:g}|x|)")
+            ms = _cuda_ms(lambda: window_attention(qkv, heads, window, scale, rh, rw), reps=20)
+            plain_ms = _cuda_ms(
+                lambda: window_attention_reference(qkv, heads, window, scale, rh, rw), reps=5,
+                warmup=1)
+            lib = sdpa_call(qkv, rh, rw, heads, window, scale)
+            lib_ms = _cuda_ms(lib, reps=20)
+            bound_ms, bound_by = k2_bound(qkv, got, rh, rw, heads, window, rates)
+            k2["shapes"].append({"shape": name, "dtype": str(dt)[6:], "ms": ms,
+                                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                 "bound_by": bound_by, "library_ms": lib_ms})
+            print(f"    K2 {name} {str(dt)[6:]}: {ms * 1e3:.1f} us/launch over 20, bound"
+                  f" {bound_ms * 1e3:.1f} us ({bound_by}, {bound_ms / ms:.1%} of it), plain"
+                  f" version {plain_ms:.3f} ms, scaled_dot_product_attention with the rel-pos"
+                  f" mask {lib_ms * 1e3:.1f} us")
+            del qkv, rh, rw, got, want, diff, lib
+    torch.cuda.empty_cache()
+
+    # (g), (h) -------------------------------------------------------------
+    cell = {}
+    side = CELL_GRID * 164
+    for phase, (model_name, per_batch) in zip("gh", CELL_MODELS):
+        handle = get_registered_model(model_name)
+        cfg = handle.config
+        out_px = cfg.patch_size_pixels - 2 * cfg.halo_size_pixels
+        t0 = time.perf_counter()
+        data = rng.integers(0, 256, (CELL_BATCHES, CELL_BATCH, cfg.patch_size_pixels,
+                                     cfg.patch_size_pixels, 3), dtype=np.uint8)
+        # patch i's output lands on the canvas at grid cell (i // CELL_GRID, i % CELL_GRID)
+        idx = np.arange(CELL_BATCHES * CELL_BATCH).reshape(CELL_BATCHES, CELL_BATCH)
+        xy = np.stack([idx % CELL_GRID * out_px - cfg.halo_size_pixels,
+                       idx // CELL_GRID * out_px - cfg.halo_size_pixels,
+                       np.full_like(idx, cfg.patch_size_pixels),
+                       np.full_like(idx, cfg.patch_size_pixels)], axis=-1)
+        engines = {m: CellEngine(handle, mixed_precision=m, init_random=True, seed=SEED)
+                   for m in (False, True)}
+        print(f"({phase}) {model_name}: {CELL_BATCHES} batches of B={CELL_BATCH} seeded"
+              f" {cfg.patch_size_pixels}px patches; two engines (seeded weights,"
+              f" {sum(p.numel() for p in engines[False].model.parameters()) / 1e6:.1f} M"
+              f" parameters) built in {time.perf_counter() - t0:.1f} s")
+        stitchers, stats = {}, {}
+        for mixed, engine in engines.items():
+            warm = TileRemapStitcher(cfg.num_classes, side, side, out_px, cfg.halo_size_pixels,
+                                     0.25, cfg.spacing_um_px)
+            run_cells(engine, warm, data[:1], xy[:1])  # warm-up: cuDNN plans, pinned buffers
+            st = TileRemapStitcher(cfg.num_classes, side, side, out_px, cfg.halo_size_pixels,
+                                   0.25, cfg.spacing_um_px)
+            torch.cuda.reset_peak_memory_stats()
+            for fn in kernels:
+                fn.launches = 0
+            secs = run_cells(engine, st, data, xy)
+            counts = {name: fn.launches for fn, name in kernels.items()}
+            stitchers[mixed] = st
+            x = engine.put(data[1])
+            pred = engine.dispatch(x)
+            fwd = _cuda_ms(lambda: engine.dispatch(x), reps=3)
+            post = _cuda_ms(lambda: st.device_postprocess(pred), reps=10)
+            share = k2_share(engine, x)
+            mode = "bf16" if mixed else "parity"
+            stats[mode] = {"patches_s": CELL_BATCHES * CELL_BATCH / secs,
+                           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                           "forward_ms": fwd, "post_ms": post, "k2_share": share,
+                           "launches": counts}
+            print(f"    {mode}: {stats[mode]['patches_s']:.1f} patches/s, peak"
+                  f" {stats[mode]['peak_gib']:.2f} GiB; device per batch: forward {fwd:.2f} ms"
+                  f" (K2 {share:.1%} of the forward's kernel time), post-process {post:.2f} ms")
+            check(counts["window_attention"] == per_batch * CELL_BATCHES,
+                  f"{mode}: K2 launches over the cell path {counts['window_attention']}"
+                  f" ({per_batch} per batch x {CELL_BATCHES})")
+            check(counts["fused_preprocess"] == 0, f"{mode}: K1 launches over the cell path 0")
+            del x, pred
+        print(f"    {_smi('clocks.sm,power.draw,temperature.gpu')} (SM clock, power, temperature)")
+
+        # (i) results, this model's part -----------------------------------
+        cpu_engine = CellEngine(handle, init_random=True, seed=SEED, device="cpu")
+        on_card = engines[False].run_batch(data[0, :2])
+        on_host = cpu_engine.run_batch(data[0, :2])
+        err = max(float((on_card[k].cpu() - on_host[k]).abs().max())
+                  for k in ("nuclei_binary_map", "hv_map", "nuclei_type_map"))
+        check(err <= 1e-3, f"(i) {model_name} parity on the card vs the CPU, 2 patches:"
+              f" max |d| of the maps {err:.3g} (<= 1e-3)")
+        p32, p16 = stitchers[False], stitchers[True]
+        d_np = float(np.abs(p16.np_map - p32.np_map).max())
+        d_hv = float(np.abs(p16.hv_map - p32.hv_map).max())
+        d_tp = float(np.abs(p16.tp_map - p32.tp_map).max())
+        np_flip = float(np.mean((p16.np_map > 0.5) != (p32.np_map > 0.5)))
+        tp_flip = float(np.mean(p16.tp_map.argmax(-1) != p32.tp_map.argmax(-1)))
+        check(np_flip <= 0.01, f"(i) {model_name} bf16 vs parity over {side}x{side} px: max |d|"
+              f" NP {d_np:.3g}, HV {d_hv:.3g}, TP {d_tp:.3g}; NP > 0.5 differs on"
+              f" {np_flip:.3%} (<= 1%), TP argmax on {tp_flip:.3%}")
+        for mode, st in (("parity", p32), ("bf16", p16)):
+            ok = all(bool(np.isfinite(m).all()) for m in (st.np_map, st.hv_map, st.tp_map))
+            # uint8 transfer: each of K probabilities is within half a level
+            tp_sum = float(np.abs(st.tp_map.sum(-1) - 1.0).max())
+            check(ok and tp_sum <= cfg.num_classes * 0.5 / 255 + 1e-6,
+                  f"(i) {model_name} {mode} canvas finite, TP rows sum to 1 within"
+                  f" {tp_sum:.3g} (quantized transfer, <= K/2 levels)")
+        exact = TileRemapStitcher(cfg.num_classes, side, side, out_px, cfg.halo_size_pixels,
+                                  0.25, cfg.spacing_um_px, transfer_dtype="float32")
+        maps = [m.cpu().numpy() for m in exact.device_postprocess(on_card)]
+        tp_sum = float(np.abs(maps[2].sum(-1) - 1.0).max())
+        check(all(np.isfinite(m).all() for m in maps) and tp_sum <= 1e-5,
+              f"(i) {model_name} float32 maps finite, TP rows sum to 1 within {tp_sum:.3g}")
+        cell[model_name] = stats
+        del data, engines, cpu_engine, stitchers, p32, p16, exact, on_card, on_host
+        torch.cuda.empty_cache()
 
     if check.failed:
         print(f"chip_smoke: {len(check.failed)} check(s) failed", file=sys.stderr)
         return 1
     ms, plain_ms, bound_ms, bound_by = timing[torch.bfloat16]
+    # K2's headline shape: SAM-H's windowed blocks in bf16, 28 of every 32
+    # launches on the SAM-H path; every shape and dtype is under "shapes".
+    k2_main = k2["shapes"][1]
+    k2_launches = sum(st["launches"]["window_attention"]
+                      for stats in cell.values() for st in stats.values())
     record = {"kernels": [{
         "name": "fused_preprocess",
         "route": "cuda",
@@ -252,7 +517,22 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+    }, {
+        "name": "window_attention",
+        "route": "cuda",
+        "source": "wsinsight_tpu_torch/ops/csrc/window_attention.cu",
+        "replaces": "wsinsight_tpu/ops/flash_attn.py:87",
+        "launches": k2_launches,
+        "max_abs_err": k2["max_abs_err"],
+        "ms": k2_main["ms"],
+        "plain_ms": k2_main["plain_ms"],
+        "bound_ms": k2_main["bound_ms"],
+        "bound_by": k2_main["bound_by"],
+        "library_ms": k2_main["library_ms"],
+        "at": f"B={CELL_BATCH} {k2_main['shape']} {k2_main['dtype']}",
+        "shapes": k2["shapes"],
     }]}
+    print(json.dumps({"cells": cell}))
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""K1, the hand-written CUDA kernel, against its plain torch version.
+"""K1 and K2, the hand-written CUDA kernels, against their plain torch versions.
 
 The ``cuda`` tests need a card and skip elsewhere. This file imports no JAX,
 so on a machine with a card and no JAX it runs on its own:
@@ -16,6 +16,10 @@ from wsinsight_tpu_torch.ops.fused_preprocess import (  # noqa: E402
     _tile_plan,
     fused_preprocess,
     fused_preprocess_reference,
+)
+from wsinsight_tpu_torch.ops.flash_attn import (  # noqa: E402
+    window_attention,
+    window_attention_reference,
 )
 from wsinsight_tpu_torch.ops.preprocess import _pil_bilinear_weights  # noqa: E402
 
@@ -78,3 +82,67 @@ def test_kernel_rejects_bad_input(cuda_device):
         fused_preprocess(x[:, :, ::2], (64, 64), one, zero)
     with pytest.raises(ValueError):
         fused_preprocess(x[..., :2].contiguous(), (64, 64), one, zero)
+
+
+# K2 at the main path's shapes, small B: (name, grid HP x WP, dim, heads,
+# window, with rel-pos). CellViT-SAM-H windowed (16x16 padded to 28x28, 14x14
+# windows) and global blocks, and CellViT-256 (cls + 16x16 tokens as one row).
+K2_SHAPES = [
+    ("sam_h_windowed", (28, 28), 1280, 16, 14, True),
+    ("sam_h_global", (16, 16), 1280, 16, 0, True),
+    ("vit_256", (1, 257), 384, 6, 0, False),
+]
+# f32: the same sums in another order. bf16: JAX's bar for its bf16 kernel
+# (tests/test_flash_attn.py, 5e-2): the rel values are rounded to bf16 after
+# sums in another order, so a pair can land one bf16 ulp apart (2**-5 at
+# |rel| >= 4 with these tables), which moves a score by as much; the output
+# is bf16 (one ulp is 2**-7 relative) and K2 rounds P before normalising it.
+K2_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (5e-2, 5e-2)}
+
+
+def _k2_inputs(shape, dim, heads, window, rel, dtype, device, b=2, seed=0):
+    """Seeded qkv and expanded rel-pos tables, as the model hands them over."""
+    rng = np.random.default_rng(seed)
+    (hp, wp), hd = shape, dim // heads
+    qkv = torch.from_numpy(rng.standard_normal((b, hp, wp, 3 * dim), dtype=np.float32))
+    qkv = qkv.to(device=device, dtype=dtype)
+    if not rel:
+        return qkv, None, None
+    tables = []
+    for a in (window or hp, window or wp):
+        table = rng.standard_normal((2 * a - 1, hd), dtype=np.float32) * 0.5
+        idx = np.add.outer(np.arange(a), -np.arange(a)) + a - 1
+        tables.append(torch.from_numpy(table[idx]).to(device=device, dtype=dtype))
+    return qkv, tables[0], tables[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape,dim,heads,window,rel", K2_SHAPES, ids=[s[0] for s in K2_SHAPES])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_window_attention_matches_plain_version(cuda_device, name, shape, dim, heads, window,
+                                                rel, dtype):
+    qkv, rh, rw = _k2_inputs(shape, dim, heads, window, rel, getattr(torch, dtype), cuda_device)
+    scale = (dim // heads) ** -0.5
+    before = window_attention.launches
+    got = window_attention(qkv, heads, window, scale, rh, rw)
+    torch.cuda.synchronize()
+    assert window_attention.launches == before + 1
+    want = window_attention_reference(qkv, heads, window, scale, rh, rw)
+    assert got.shape == (qkv.shape[0], *shape, dim) and got.dtype == qkv.dtype
+    atol, rtol = K2_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_window_attention_rejects_bad_input(cuda_device):
+    qkv, rh, rw = _k2_inputs((28, 28), 1280, 16, 14, True, torch.float32, cuda_device, b=1)
+    before = window_attention.launches
+    with pytest.raises(TypeError):
+        window_attention(qkv.half(), 16, 14, 0.1, rh.half(), rw.half())
+    with pytest.raises(ValueError):  # not contiguous
+        window_attention(qkv.transpose(1, 2), 16, 14, 0.1, rh, rw)
+    with pytest.raises(ValueError):  # 28 is not a multiple of 13
+        window_attention(qkv, 16, 13, 0.1)
+    with pytest.raises(ValueError):  # rel-pos table of another dtype
+        window_attention(qkv, 16, 14, 0.1, rh.bfloat16(), rw.bfloat16())
+    assert window_attention.launches == before

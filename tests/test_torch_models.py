@@ -148,14 +148,22 @@ def test_registry_copy_matches_jax():
     assert get_registered_model(name).config.to_dict() == jax_get(name).config.to_dict()
 
 
-@pytest.mark.parametrize("arch", ["vgg16", "cellvit_256", "not_a_net"])
+@pytest.mark.parametrize("arch", ["vgg16", "hovernet_fast", "not_a_net"])
 def test_unported_architecture_raises(arch):
     with pytest.raises(UnknownArchitectureError, match="not yet ported"):
         create_model(arch, 2)
 
 
+PORT_MODULES = (
+    "engine.runner", "engine.cells", "engine.stitch", "models.resnet", "models.vit",
+    "models.cellvit", "models.convert", "ops.fused_preprocess", "ops.flash_attn",
+    "ops.resize", "ops.cuda_build", "zoo",
+)
+
+
 def test_port_imports_no_jax():
-    """Importing every module of the port loads no jax, flax or wsinsight_tpu."""
+    """Importing every module of the port loads no jax, flax or wsinsight_tpu,
+    and the cell path's modules are among those imported."""
     code = (
         "import importlib, pkgutil, sys, wsinsight_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
@@ -163,8 +171,9 @@ def test_port_imports_no_jax():
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in"
         " ('jax', 'jaxlib', 'flax', 'wsinsight_tpu'))\n"
         "assert not bad, bad\n"
-        "print(len([n for n in sys.modules if n.startswith('wsinsight_tpu_torch')]))\n"
+        "print(' '.join(n for n in sys.modules if n.startswith('wsinsight_tpu_torch')))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout) >= 12
+    loaded = set(out.stdout.split())
+    assert {f"wsinsight_tpu_torch.{m}" for m in PORT_MODULES} <= loaded

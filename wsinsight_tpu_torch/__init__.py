@@ -6,9 +6,11 @@ live under ``ops/csrc`` and are compiled with ``nvcc`` at first use into
 ``build/wsinsight_tpu_torch/`` at the root of the checkout.
 
 Ported so far: the patch-classification engine (``engine.runner.
-ClassifierEngine``) with its preprocess (``ops``), the ResNet family
-(``models``), weight loading (``models.convert``, ``zoo``) and device
-resolution (``parallel.mesh``).
+ClassifierEngine``) with its preprocess (``ops``) and the ResNet family; the
+CellViT cell engine (``engine.cells.CellEngine``) with the SAM and ViT-256
+encoders and their fused window attention (``ops.flash_attn``), and the
+stitcher's device half (``engine.stitch``); weight loading
+(``models.convert``, ``zoo``) and device resolution (``parallel.mesh``).
 """
 
 __version__ = "0.1.0"

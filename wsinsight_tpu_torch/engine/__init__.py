@@ -1,5 +1,7 @@
 """Inference engines of the port."""
 
+from .cells import CellEngine
 from .runner import ClassifierEngine
+from .stitch import TileRemapStitcher, make_map_postprocess
 
-__all__ = ["ClassifierEngine"]
+__all__ = ["CellEngine", "ClassifierEngine", "TileRemapStitcher", "make_map_postprocess"]

@@ -30,11 +30,12 @@ from ..parallel.mesh import pad_to_multiple, resolve_device
 from ..zoo import ModelHandle
 
 
-def _refuse_unported_options() -> None:
-    """Options of the JAX engine this slice does not port yet."""
+def _refuse_unported_options(classifier: bool = True) -> None:
+    """Options of the JAX engines not ported yet (host resize is the
+    classifier's alone)."""
     if os.getenv("WSINSIGHT_WIRE", "").lower() == "yuv420":
         raise NotImplementedError("WSINSIGHT_WIRE=yuv420 is not yet ported to torch")
-    if os.getenv("WSINSIGHT_HOST_RESIZE", "0") not in ("0", ""):
+    if classifier and os.getenv("WSINSIGHT_HOST_RESIZE", "0") not in ("0", ""):
         raise NotImplementedError("WSINSIGHT_HOST_RESIZE is not yet ported to torch")
     if os.getenv("WSINSIGHT_PRECISION"):
         raise NotImplementedError("WSINSIGHT_PRECISION is not yet ported to torch")
@@ -81,7 +82,7 @@ class ClassifierEngine:
             torch.backends.cudnn.allow_tf32 = False
 
         model = create_model(cfg.architecture, cfg.num_classes, dtype=compute_dtype)
-        model.load_state_dict(model_info.load_state_dict(), strict=True)
+        model.load_state_dict(model_info.load_state_dict(model), strict=True)
         self.model = model.to(self.device, memory_format=torch.channels_last)
 
         self.spec = TransformSpec.from_config(cfg.transform)

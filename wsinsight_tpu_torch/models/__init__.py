@@ -1,8 +1,9 @@
 """Model zoo of the port: architecture registry and constructors.
 
-Counterpart of wsinsight_tpu/models/__init__.py, with the same aliases. This
-slice ports the ResNet family; every other architecture raises
-``UnknownArchitectureError``.
+Counterpart of wsinsight_tpu/models/__init__.py, with the same aliases.
+Ported: the ResNet family and CellViT (SAM-B/L/H and ViT-256); CellViT-Virchow
+is registered and raises ``NotImplementedError`` until its encoder is ported;
+every other architecture raises ``UnknownArchitectureError``.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from typing import Callable
 import torch
 
 from ..errors import UnknownArchitectureError
+from .cellvit import cellvit_256, cellvit_sam_b, cellvit_sam_h, cellvit_sam_l, cellvit_virchow
 from .resnet import preactresnet34, resnet34, resnet50
 
 _REGISTRY: dict[str, Callable] = {}
@@ -25,18 +27,30 @@ def _register(fn: Callable, *names: str) -> None:
 _register(resnet34, "resnet34")
 _register(resnet50, "resnet50")
 _register(preactresnet34, "preactresnet34", "preact_resnet34")
+_register(cellvit_sam_h, "cellvit_sam_h", "cellvit-sam-h")
+_register(cellvit_sam_l, "cellvit_sam_l", "cellvit-sam-l")
+_register(cellvit_sam_b, "cellvit_sam_b", "cellvit-sam-b")
+_register(cellvit_256, "cellvit_256", "cellvit-256")
+_register(cellvit_virchow, "cellvit_virchow", "cellvit-virchow")
 
 
 def available_architectures() -> list[str]:
     return sorted(_REGISTRY)
 
 
-def create_model(architecture: str, num_classes: int, dtype: torch.dtype = torch.float32):
-    """Instantiate the torch module (eval mode) for a zoo architecture name."""
+def is_cell_architecture(architecture: str) -> bool:
+    return architecture.lower().replace("-", "_").startswith(("cellvit", "hovernet"))
+
+
+def create_model(architecture: str, num_classes: int, dtype: torch.dtype = torch.float32,
+                 **kwargs):
+    """Instantiate the torch module (eval mode) for a zoo architecture name.
+    ``kwargs`` go to the constructor (``halo_size`` and ``img_size`` for
+    CellViT)."""
     key = architecture.lower().replace("-", "_")
     if key not in _REGISTRY:
         raise UnknownArchitectureError(
             f"architecture '{architecture}' is not yet ported to torch;"
             f" ported: {available_architectures()}"
         )
-    return _REGISTRY[key](num_classes=num_classes, dtype=dtype).eval()
+    return _REGISTRY[key](num_classes=num_classes, dtype=dtype, **kwargs).eval()

@@ -3,11 +3,20 @@
 Counterpart of wsinsight_tpu/models/convert.py. The port's modules carry
 torchvision's names, so a torch checkpoint loads as it is.
 ``flax_params_to_state_dict`` is the inverse of the JAX package's
-``convert_torch_state_dict``:
+``convert_torch_state_dict`` / ``convert_with_template``:
 
-* conv kernel (kh, kw, in, out) -> weight (out, in, kh, kw)
-* linear kernel (in, out)       -> weight (out, in)
-* batch-norm leaves             -> copied, plus ``num_batches_tracked`` = 0
+* conv kernel (kh, kw, in, out)    -> weight (out, in, kh, kw)
+* transposed-conv kernel (kh, kw, in, out) -> weight (in, out, kh, kw),
+  spatially flipped (flax applies the kernel unflipped, torch transposes a
+  cross-correlation)
+* linear kernel (in, out)          -> weight (out, in)
+* layer-norm ``scale``             -> ``weight``
+* batch-norm leaves                -> copied, plus ``num_batches_tracked`` = 0
+* raw parameters (``pos_embed``, ``cls_token``, ``rel_pos_h``/``_w``) -> copied
+
+Conv against transposed conv is read off the port model's own module types
+when the model is given: a name cannot tell them apart, and with in == out
+their shapes cannot either.
 """
 
 from __future__ import annotations
@@ -43,24 +52,42 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, dict[str, n
     return modules
 
 
-def flax_params_to_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """Torch state dict from a flax ``params`` tree of numpy arrays."""
+def _f32(a: np.ndarray) -> torch.Tensor:
+    return torch.tensor(np.ascontiguousarray(a), dtype=torch.float32)
+
+
+def flax_params_to_state_dict(
+    params: Mapping[str, Any], model: torch.nn.Module | None = None
+) -> dict[str, torch.Tensor]:
+    """Torch state dict from a flax ``params`` tree of numpy arrays.
+
+    ``model`` is the port module the state dict is for; its
+    ``nn.ConvTranspose2d`` submodules take the transposed-conv mapping.
+    Without it every 4-D kernel is a convolution (the classifiers have no
+    other)."""
+    deconvs = set()
+    if model is not None:
+        deconvs = {name for name, m in model.named_modules()
+                   if isinstance(m, torch.nn.ConvTranspose2d)}
     sd: dict[str, torch.Tensor] = {}
     for mod, leaves in _flatten(params).items():
+        prefix = f"{mod}." if mod else ""
         if "running_mean" in leaves:  # batch norm
             for name in _BN_LEAVES:
-                sd[f"{mod}.{name}"] = torch.tensor(leaves[name], dtype=torch.float32)
-            sd[f"{mod}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+                sd[prefix + name] = _f32(leaves[name])
+            sd[prefix + "num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
             continue
-        kernel = leaves.get("kernel")
-        if kernel is not None:
-            if kernel.ndim == 4:
-                kernel = np.transpose(kernel, (3, 2, 0, 1))
-            elif kernel.ndim == 2:
-                kernel = kernel.T
-            sd[f"{mod}.weight"] = torch.tensor(kernel, dtype=torch.float32)
-        if "bias" in leaves:
-            sd[f"{mod}.bias"] = torch.tensor(leaves["bias"], dtype=torch.float32)
+        for name, value in leaves.items():
+            if name == "kernel" and value.ndim == 4 and mod in deconvs:
+                sd[prefix + "weight"] = _f32(np.transpose(value[::-1, ::-1], (2, 3, 0, 1)))
+            elif name == "kernel" and value.ndim == 4:
+                sd[prefix + "weight"] = _f32(np.transpose(value, (3, 2, 0, 1)))
+            elif name == "kernel" and value.ndim == 2:
+                sd[prefix + "weight"] = _f32(value.T)
+            elif name == "scale":  # layer norm
+                sd[prefix + "weight"] = _f32(value)
+            else:  # bias and raw parameters
+                sd[prefix + name] = _f32(value)
     return sd
 
 

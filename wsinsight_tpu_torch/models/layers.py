@@ -1,4 +1,4 @@
-"""Torch-semantics building blocks of the classifier models.
+"""Torch-semantics building blocks of the port's models.
 
 Counterpart of wsinsight_tpu/models/layers.py. The modules subclass the
 torch layers they stand for, so their state-dict keys (``weight``,
@@ -14,8 +14,11 @@ the stock layers is only what the JAX package pins down:
 * ``global_avg_pool`` averages in float32.
 
 Linear layers and max pooling are torch's own (``nn.Linear``;
-``F.max_pool2d`` pads with -inf, as ``max_pool_torch`` does). Tensors are
-NCHW; the engine runs them as channels_last.
+``F.max_pool2d`` pads with -inf, as ``max_pool_torch`` does). So are the ViT
+and CellViT layers that flax takes from ``flax.linen``, under flax's names:
+``LayerNorm`` (epsilon 1e-6, the only one the ViTs use) and
+``ConvTranspose`` (the 2x2 stride-2 upsampler of the CellViT decoder). Tensors
+are NCHW; the engine runs them as channels_last.
 """
 
 from __future__ import annotations
@@ -63,6 +66,22 @@ class EvalBN(nn.BatchNorm2d):
         shift = self.bias - self.running_mean * scale
         shape = (1, -1, 1, 1)
         return (x.float() * scale.reshape(shape) + shift.reshape(shape)).to(x.dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm over the last dim with flax's epsilon of 1e-6."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__(dim, eps=eps)
+
+
+class ConvTranspose(nn.ConvTranspose2d):
+    """The 2x2 stride-2 transposed convolution (flax ``nn.ConvTranspose``
+    with ``padding="VALID"``): each input pixel becomes a 2x2 output block.
+    ``flax_params_to_state_dict`` flips flax's kernel to torch's."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__(in_ch, out_ch, kernel_size=2, stride=2)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

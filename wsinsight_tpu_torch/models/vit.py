@@ -1,0 +1,262 @@
+"""ViT encoders for CellViT: SAM-style (windowed attention + decomposed
+relative positions) and the standard ViT-256 (HIPT), in torch.
+
+Counterpart of wsinsight_tpu/models/vit.py. Module names are the flax
+names (``patch_embed.proj``, ``blocks.N.attn.qkv``, ``mlp.lin1``), so a flax
+param tree carried across by ``flax_params_to_state_dict`` loads with
+``strict=True``. Activations stay in the JAX layout, channel-last
+``(B, H, W, C)`` token grids. Parameters are float32; ``dtype`` is the
+compute dtype, bfloat16 running under autocast.
+
+On the card every attention core is K2 (``ops.flash_attn.window_attention``);
+on the CPU the same call runs its plain version. The port has no switch for
+it. Virchow's SwiGLU, LayerScale and native-grid interpolation, and the
+H-Optimus ``FoundationViT``, are not ported yet (``ROADMAP.md``, queue 3).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.flash_attn import window_attention
+from ..ops.resize import resize_axis
+from .layers import LayerNorm
+
+
+@dataclass(frozen=True)
+class ViTConfig:
+    embed_dim: int
+    depth: int
+    num_heads: int
+    patch_size: int = 16
+    mlp_ratio: float = 4.0
+    window_size: int = 14  # SAM variants; 0 = all-global
+    global_attn_indexes: tuple = ()
+    use_rel_pos: bool = False  # SAM decomposed relative positions
+    use_cls_token: bool = True  # standard ViT; SAM has none
+    extract_layers: tuple = ()
+    # torch leaf naming of the block MLP: SAM exports lin1/lin2, DINO/HIPT
+    # (the CellViT-256 encoder lineage) exports fc1/fc2.
+    mlp_naming: tuple = ("mlp.lin1", "mlp.lin2")
+    # DINOv2-lineage extensions (Virchow, H-Optimus); not ported yet.
+    mlp_type: str = "gelu"  # "gelu" | "swiglu"
+    layer_scale: bool = False
+    native_grid: int = 0
+    reg_tokens: int = 0
+    no_embed_class: bool = False
+
+
+SAM_VIT_B = ViTConfig(768, 12, 12, use_rel_pos=True, use_cls_token=False,
+                      global_attn_indexes=(2, 5, 8, 11), extract_layers=(3, 6, 9, 12))
+SAM_VIT_L = ViTConfig(1024, 24, 16, use_rel_pos=True, use_cls_token=False,
+                      global_attn_indexes=(5, 11, 17, 23), extract_layers=(6, 12, 18, 24))
+SAM_VIT_H = ViTConfig(1280, 32, 16, use_rel_pos=True, use_cls_token=False,
+                      global_attn_indexes=(7, 15, 23, 31), extract_layers=(8, 16, 24, 32))
+VIT_256 = ViTConfig(384, 12, 6, use_rel_pos=False, use_cls_token=True,
+                    window_size=0, extract_layers=(3, 6, 9, 12),
+                    mlp_naming=("mlp.fc1", "mlp.fc2"))
+# Virchow (ViT-H/14, DINOv2) and H-Optimus-0 (ViT-g/14 reg4): the configs are
+# kept so the registry's names resolve; building either raises until their
+# SwiGLU / LayerScale / native-grid features are ported.
+VIRCHOW_VIT_H = ViTConfig(1280, 32, 16, patch_size=14, mlp_ratio=5.3375,
+                          window_size=0, use_rel_pos=False, use_cls_token=True,
+                          extract_layers=(8, 16, 24, 32),
+                          mlp_naming=("mlp.fc1", "mlp.fc2"),
+                          mlp_type="swiglu", layer_scale=True, native_grid=16)
+HOPTIMUS_VIT_G = ViTConfig(1536, 40, 24, patch_size=14, mlp_ratio=4096 / 1536,
+                           window_size=0, use_rel_pos=False, use_cls_token=True,
+                           mlp_naming=("mlp.fc1", "mlp.fc2"),
+                           mlp_type="swiglu", layer_scale=True, native_grid=16,
+                           reg_tokens=4, no_embed_class=True)
+
+_UNPORTED = "is not yet ported to torch (ROADMAP.md, queue 3)"
+
+
+def _refuse_unported(cfg: ViTConfig) -> None:
+    if cfg.mlp_type != "gelu" or cfg.layer_scale or cfg.native_grid or cfg.reg_tokens \
+            or cfg.no_embed_class:
+        raise NotImplementedError(
+            f"the DINOv2 ViT of Virchow / H-Optimus (SwiGLU, LayerScale,"
+            f" native-grid pos-embed, register tokens) {_UNPORTED}"
+        )
+
+
+def _rel_index(q_size: int, k_size: int) -> np.ndarray:
+    q_coords = np.arange(q_size)[:, None] * max(k_size / q_size, 1.0)
+    k_coords = np.arange(k_size)[None, :] * max(q_size / k_size, 1.0)
+    relative = (q_coords - k_coords) + (k_size - 1) * max(q_size / k_size, 1.0)
+    return relative.astype(np.int64)
+
+
+def _get_rel_pos(q_size: int, k_size: int, rel_pos: torch.Tensor) -> torch.Tensor:
+    """Slice/interpolate relative position embeddings (SAM get_rel_pos):
+    (L, C) -> (q_size, k_size, C), resized along L with ``jax.image.resize``'s
+    antialiased linear kernel when L is not 2*max(q, k) - 1."""
+    max_rel_dist = 2 * max(q_size, k_size) - 1
+    rel_pos = resize_axis(rel_pos, 0, max_rel_dist)
+    idx = torch.from_numpy(_rel_index(q_size, k_size)).to(rel_pos.device)
+    return rel_pos[idx]
+
+
+class Attention(nn.Module):
+    """Multi-head attention with optional SAM decomposed rel-pos, on (B,H,W,C).
+
+    As in the JAX package, the qkv and proj projections run on the REAL
+    token grid and only the attention core sees padded windows: zero rows
+    through a Linear come out as its bias, so the pad region of the padded
+    qkv grid is filled with the qkv bias instead of being projected.
+    ``input_size`` is the token grid the model runs at; it fixes the
+    rel-pos tables' shapes (2*a - 1, head_dim), a = window or grid side.
+    """
+
+    def __init__(self, dim: int, num_heads: int, use_rel_pos: bool = False,
+                 window_size: int = 0, input_size: tuple[int, int] = (16, 16)):
+        super().__init__()
+        self.dim = dim
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.scale = self.head_dim ** -0.5
+        self.window_size = window_size
+        self.use_rel_pos = use_rel_pos
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.proj = nn.Linear(dim, dim)
+        if use_rel_pos:
+            ah, aw = (window_size, window_size) if window_size else input_size
+            self.rel_pos_h = nn.Parameter(torch.zeros(2 * ah - 1, self.head_dim))
+            self.rel_pos_w = nn.Parameter(torch.zeros(2 * aw - 1, self.head_dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, _ = x.shape
+        qkv = self.qkv(x)  # (b, h, w, 3*dim)
+        ws = self.window_size
+        if ws:
+            hp, wp = -(-h // ws) * ws, -(-w // ws) * ws
+            if (hp, wp) != (h, w):
+                padded = self.qkv.bias.to(qkv.dtype).expand(b, hp, wp, 3 * self.dim).clone()
+                padded[:, :h, :w] = qkv
+                qkv = padded
+            ah = aw = ws
+        else:
+            ah, aw = h, w
+        rh = rw = None
+        if self.use_rel_pos:
+            rh = _get_rel_pos(ah, ah, self.rel_pos_h).to(qkv.dtype)
+            rw = _get_rel_pos(aw, aw, self.rel_pos_w).to(qkv.dtype)
+        out = window_attention(qkv.contiguous(), self.num_heads, ws, self.scale, rh, rw)
+        return self.proj(out[:, :h, :w])
+
+
+class Mlp(nn.Module):
+    """Block MLP: Linear -> exact GELU -> Linear, under the checkpoint's
+    leaf names (``lin1``/``lin2`` or ``fc1``/``fc2``)."""
+
+    def __init__(self, dim: int, hidden: int, names: tuple[str, str]):
+        super().__init__()
+        self.names = names
+        setattr(self, names[0], nn.Linear(dim, hidden))
+        setattr(self, names[1], nn.Linear(hidden, dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.gelu(getattr(self, self.names[0])(x))
+        return getattr(self, self.names[1])(x)
+
+
+class Block(nn.Module):
+    """Pre-norm transformer block; windowed when window_size > 0."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float, window_size: int,
+                 use_rel_pos: bool, mlp_naming: tuple = ("mlp.lin1", "mlp.lin2"),
+                 input_size: tuple[int, int] = (16, 16)):
+        super().__init__()
+        prefix = {n.split(".")[0] for n in mlp_naming}
+        if prefix != {"mlp"}:
+            raise ValueError(f"MLP leaves must sit under 'mlp.', got {mlp_naming}")
+        self.norm1 = LayerNorm(dim)
+        self.attn = Attention(dim, num_heads, use_rel_pos, window_size, input_size)
+        self.norm2 = LayerNorm(dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), tuple(n.split(".", 1)[1] for n in mlp_naming))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x))
+        return x + self.mlp(self.norm2(x))
+
+
+class PatchEmbed(nn.Module):
+    def __init__(self, patch: int, dim: int):
+        super().__init__()
+        self.proj = nn.Conv2d(3, dim, patch, patch)
+
+
+class ViTEncoder(nn.Module):
+    """ViT backbone emitting skip features at config.extract_layers.
+
+    ``forward`` takes (B, H, W, 3) and returns (final grid, [skips], pooled),
+    each grid (B, H/16, W/16, C), as the JAX encoder does. ``img_size`` is
+    the input side the model runs at (it fixes pos_embed and the global
+    blocks' rel-pos tables).
+    """
+
+    def __init__(self, config: ViTConfig, img_size: int = 256):
+        super().__init__()
+        _refuse_unported(config)
+        cfg = self.config = config
+        g = img_size // cfg.patch_size
+        self.patch_embed = PatchEmbed(cfg.patch_size, cfg.embed_dim)
+        if cfg.use_cls_token:
+            self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.embed_dim))
+            self.pos_embed = nn.Parameter(torch.zeros(1, g * g + 1, cfg.embed_dim))
+        else:
+            self.pos_embed = nn.Parameter(torch.zeros(1, g, g, cfg.embed_dim))
+        self.blocks = nn.ModuleList()
+        for i in range(cfg.depth):
+            if cfg.use_cls_token:  # global attention over the cls + grid tokens
+                window, rel, size = 0, False, (1, g * g + 1)
+            else:
+                global_block = cfg.window_size == 0 or i in cfg.global_attn_indexes
+                window, rel, size = (0 if global_block else cfg.window_size), cfg.use_rel_pos, (g, g)
+            self.blocks.append(Block(cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio, window, rel,
+                                     cfg.mlp_naming, size))
+        if cfg.use_cls_token:
+            self.norm = LayerNorm(cfg.embed_dim)
+
+    def forward(self, x: torch.Tensor):
+        cfg = self.config
+        b, h, w, _ = x.shape
+        gh, gw = h // cfg.patch_size, w // cfg.patch_size
+        grid = self.patch_embed.proj(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)  # (B, gh, gw, C)
+        if cfg.use_cls_token:
+            # float32 cls + (autocast) patch tokens promote to float32, as in flax
+            tokens = grid.reshape(b, gh * gw, cfg.embed_dim).float()
+            tokens = torch.cat([self.cls_token.expand(b, -1, -1), tokens], 1)
+            tokens = (tokens + self.pos_embed)[:, None]  # (B, 1, n, C): one row of tokens
+        else:
+            grid = grid + self.pos_embed
+
+        skips = []
+        for i, blk in enumerate(self.blocks):
+            if cfg.use_cls_token:
+                tokens = blk(tokens)
+                grid = tokens[:, 0, 1:].reshape(b, gh, gw, cfg.embed_dim)
+            else:
+                grid = blk(grid)
+            if (i + 1) in cfg.extract_layers:
+                skips.append(grid)
+
+        if cfg.use_cls_token:
+            pooled = self.norm(tokens[:, 0, 0])
+        else:
+            pooled = grid.mean(dim=(1, 2))
+        return grid, skips, pooled
+
+
+class FoundationViT(nn.Module):
+    """The H-Optimus-0 pooled-embedding ViT; not ported yet."""
+
+    def __init__(self, config: ViTConfig, img_size: int = 224):
+        super().__init__()
+        raise NotImplementedError(f"FoundationViT (H-Optimus-0) {_UNPORTED}")

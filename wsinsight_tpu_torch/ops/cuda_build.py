@@ -29,7 +29,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 # Every kernel source of the port; build() compiles them all at once.
-KERNEL_SOURCES = ("fused_preprocess.cu",)
+KERNEL_SOURCES = ("fused_preprocess.cu", "window_attention.cu")
 
 
 def _nvcc() -> str:

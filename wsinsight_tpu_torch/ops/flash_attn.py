@@ -1,0 +1,181 @@
+"""K2: fused multi-head window attention with SAM's decomposed rel-pos.
+
+Counterpart of wsinsight_tpu/ops/flash_attn.py. The CUDA kernel is
+``csrc/window_attention.cu`` (its header states its bound and design);
+``window_attention_reference`` is the plain torch version of the same
+contract. ``window_attention`` dispatches on where the qkv grid lies: a CUDA
+tensor goes to the kernel (or raises), a CPU tensor to the plain version.
+Nothing else.
+
+Contract (the TPU kernel's, ``flash_attn.py:87-125``), per (image, window,
+head), with q, k, v the head's slices of the window's tokens (row-major):
+
+* ``S = (q * scale) @ k.T``, ``q * scale`` rounded to q's dtype (the scale
+  itself too, as JAX rounds a Python scalar to the array's dtype), the
+  products summed in float32;
+* with rel-pos, ``S += rel_h[:, kh] + rel_w[:, kw]`` where
+  ``rel_h[(qh, qw), kh] = q[(qh, qw)] . Rh[qh, kh]`` (q unscaled) and
+  likewise ``rel_w``, each rounded to q's dtype before the add;
+* a float32 softmax over the keys, P cast to v's dtype, ``P @ v`` summed in
+  float32, the result in the input dtype.
+
+Pad tokens of a padded window carry the qkv bias and take part in the
+attention, as in SAM: nothing is masked.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .cuda_build import load_library
+
+_SOURCE = "window_attention.cu"
+_HEAD_DIMS = (32, 64, 80, 128)  # the kernel's instantiations
+_SMEM_MAX = 227 * 1024
+_TILE = 64  # query rows per CTA and keys per shared-memory tile
+
+
+def _geometry(shape: torch.Size, num_heads: int, window: int):
+    """(dim, hd, ah, aw, gh, gw) of a (B, HP, WP, 3*dim) qkv grid."""
+    _, hp, wp, c3 = shape
+    if c3 % 3 or (c3 // 3) % num_heads:
+        raise ValueError(f"window_attention: {c3} channels do not split into 3 x {num_heads} heads")
+    dim = c3 // 3
+    if window:
+        if hp % window or wp % window:
+            raise ValueError(f"window_attention: grid {hp}x{wp} is not a multiple of window {window}")
+        return dim, dim // num_heads, window, window, hp // window, wp // window
+    return dim, dim // num_heads, hp, wp, 1, 1
+
+
+def _rounded_scale(scale: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(scale, dtype=dtype))
+
+
+def window_attention_reference(
+    qkv: torch.Tensor,
+    num_heads: int,
+    window: int,
+    scale: float,
+    rh: torch.Tensor | None = None,
+    rw: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain torch K2: (B, HP, WP, 3*dim) -> (B, HP, WP, dim), unfused,
+    with the kernel's roundings (see the module docstring)."""
+    b, hp, wp, _ = qkv.shape
+    dim, hd, ah, aw, gh, gw = _geometry(qkv.shape, num_heads, window)
+    n = ah * aw
+    dt = qkv.dtype
+    with torch.autocast(qkv.device.type, enabled=False):
+        # (B, gh, ah, gw, aw, 3, heads, hd) -> (3, B*nw, heads, n, hd)
+        x = qkv.reshape(b, gh, ah, gw, aw, 3, num_heads, hd)
+        x = x.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, b * gh * gw, num_heads, n, hd)
+        q, k, v = x[0], x[1], x[2]
+        qs = q * torch.tensor(_rounded_scale(scale, dt), dtype=dt)
+        s = torch.matmul(qs.float(), k.float().transpose(-1, -2))  # (B*nw, heads, n, n)
+        if rh is not None:
+            rq = q.float().reshape(-1, num_heads, ah, aw, hd)
+            rel_h = torch.einsum("bnhwc,hkc->bnhwk", rq, rh.float()).to(dt).float()
+            rel_w = torch.einsum("bnhwc,wkc->bnhwk", rq, rw.float()).to(dt).float()
+            s = s.reshape(-1, num_heads, ah, aw, ah, aw)
+            s = s + rel_h[..., :, None] + rel_w[..., None, :]
+            s = s.reshape(-1, num_heads, n, n)
+        p = torch.softmax(s, dim=-1).to(v.dtype)
+        o = torch.matmul(p.float(), v.float()).to(dt)  # (B*nw, heads, n, hd)
+        o = o.reshape(b, gh, gw, num_heads, ah, aw, hd).permute(0, 1, 4, 2, 5, 3, 6)
+        return o.reshape(b, hp, wp, dim)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    lib = load_library(_SOURCE)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.wsi_window_attention.argtypes = [
+        ptr, ptr, ptr, ptr, i32, i32,  # qkv, out, rh, rw, bf16, head dim
+        i32, i32, i32, i32, i32,  # B, HP, WP, dim, heads
+        i32, i32, i32, i32, ctypes.c_float, ptr,  # ah, aw, gh, gw, scale, stream
+    ]
+    lib.wsi_window_attention.restype = i32
+    lib.wsi_cuda_error_string.argtypes = [i32]
+    lib.wsi_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def shared_memory_bytes(hd: int, ah: int, aw: int, with_rel: bool) -> int:
+    """Dynamic shared memory of one CTA: the K and V tiles in float32, plus
+    each query row's rel_h and rel_w values (row stride made odd)."""
+    return 2 * _TILE * hd * 4 + (_TILE * ((ah + aw) | 1) * 4 if with_rel else 0)
+
+
+def window_attention(
+    qkv: torch.Tensor,
+    num_heads: int,
+    window: int,
+    scale: float,
+    rh: torch.Tensor | None = None,
+    rw: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Fused multi-head (windowed) attention over a qkv feature grid.
+
+    qkv: (B, HP, WP, 3*dim), channels [q | k | v], each split into
+    ``num_heads`` heads. HP and WP are multiples of ``window``; ``window ==
+    0`` means global attention over the whole grid. rh / rw: optional
+    expanded rel-pos tables (ah, ah, hd) / (aw, aw, hd) in qkv's dtype.
+    Returns (B, HP, WP, dim) in qkv's dtype. A CUDA grid runs the kernel; a
+    CPU grid runs ``window_attention_reference``. ``window_attention.launches``
+    counts the kernel's launches."""
+    if qkv.device.type == "cpu":
+        return window_attention_reference(qkv, num_heads, window, scale, rh, rw)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"window_attention: unsupported device {qkv.device}")
+    if qkv.dim() != 4:
+        raise ValueError(f"window_attention: expected (B, HP, WP, 3*dim), got {tuple(qkv.shape)}")
+    if qkv.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"window_attention: expected float32 or bfloat16, got {qkv.dtype}")
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError("window_attention: qkv must be contiguous and 16-byte aligned")
+    b, hp, wp, _ = qkv.shape
+    dim, hd, ah, aw, gh, gw = _geometry(qkv.shape, num_heads, window)
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"window_attention: head dim {hd} not in {_HEAD_DIMS}")
+    if (rh is None) != (rw is None):
+        raise ValueError("window_attention: pass both rel-pos tables or neither")
+    if rh is not None:
+        for name, t, a in (("rh", rh, ah), ("rw", rw, aw)):
+            if t.shape != (a, a, hd) or t.dtype != qkv.dtype or t.device != qkv.device:
+                raise ValueError(
+                    f"window_attention: {name} must be ({a}, {a}, {hd}) {qkv.dtype} on"
+                    f" {qkv.device}, got {tuple(t.shape)} {t.dtype} on {t.device}"
+                )
+            if not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError(f"window_attention: {name} must be contiguous and 16-byte aligned")
+    if shared_memory_bytes(hd, ah, aw, rh is not None) > _SMEM_MAX:
+        raise ValueError(f"window_attention: a {ah}x{aw} window does not fit shared memory")
+    n_tiles = -(-(ah * aw) // _TILE)
+    if num_heads > 65535 or n_tiles > 65535:
+        raise ValueError("window_attention: heads or query tiles exceed the grid's 65535")
+    out = torch.empty((b, hp, wp, dim), dtype=qkv.dtype, device=qkv.device)
+    if out.numel() == 0:
+        return out
+    lib = _kernel()
+    with torch.cuda.device(qkv.device):
+        err = lib.wsi_window_attention(
+            qkv.data_ptr(), out.data_ptr(),
+            rh.data_ptr() if rh is not None else None,
+            rw.data_ptr() if rw is not None else None,
+            int(qkv.dtype == torch.bfloat16), hd,
+            b, hp, wp, dim, num_heads, ah, aw, gh, gw,
+            _rounded_scale(scale, qkv.dtype), torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"window_attention launch failed: {lib.wsi_cuda_error_string(err).decode()}"
+        )
+    window_attention.launches += 1
+    return out
+
+
+window_attention.launches = 0

@@ -131,8 +131,10 @@ class ModelHandle:
     hf_repo_id: str | None = None
     hf_revision: str | None = None
 
-    def load_state_dict(self) -> dict[str, torch.Tensor]:
-        """The weights as a torch state dict (CPU tensors, torchvision names)."""
+    def load_state_dict(self, model: torch.nn.Module | None = None) -> dict[str, torch.Tensor]:
+        """The weights as a torch state dict (CPU tensors, torchvision names).
+        ``model``, the module they are for, tells a flax checkpoint's
+        transposed convolutions from its convolutions."""
         from ..models.convert import (
             flax_params_to_state_dict,
             load_flax_msgpack,
@@ -141,7 +143,7 @@ class ModelHandle:
 
         path = self._resolve_weights()
         if path.suffix in (".msgpack", ".flax"):
-            return flax_params_to_state_dict(load_flax_msgpack(path))
+            return flax_params_to_state_dict(load_flax_msgpack(path), model)
         return load_torch_weights(path)
 
     def _resolve_weights(self) -> Path:
@@ -237,6 +239,59 @@ def load_local_model(config_path: str | Path, weights_path: str | Path) -> Model
     return ModelHandle(name=Path(config_path).stem, config=cfg, weights_path=str(weights_path))
 
 
+def _init_normal(p: torch.Tensor, gen: torch.Generator, std: float) -> None:
+    p.copy_(torch.randn(p.shape, generator=gen) * std)
+
+
+def randomize_cell_model(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
+    """Seeded random weights for a CellViT, in place, on the CPU.
+
+    Convolutions are normal with variance 2/fan-in, transposed convolutions
+    1/in-channels, linear layers 1/fan-in; biases N(0, 0.1^2), so a padded
+    window's bias-filled tokens differ from zeros; pos_embed and cls_token
+    N(0, 0.02^2) (flax's init) and the rel-pos tables N(0, 0.1^2), so rel-pos
+    moves the scores; layer and batch norms keep their identity. Then each
+    decoder branch's last conv is scaled to give unit-scale maps on a seeded
+    noise batch, run in float32 whatever the model's compute dtype: logits
+    that do not saturate keep the model's numerics visible in comparisons.
+    The same seed gives the same weights on every host."""
+    from ..models.layers import EvalBN
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            mod_name, _, leaf = name.rpartition(".")
+            mod = model.get_submodule(mod_name) if mod_name else model
+            if isinstance(mod, (torch.nn.LayerNorm, EvalBN)):
+                continue
+            if leaf == "bias":
+                _init_normal(p, gen, 0.1)
+            elif isinstance(mod, torch.nn.ConvTranspose2d):
+                _init_normal(p, gen, (1.0 / p.shape[0]) ** 0.5)
+            elif leaf == "weight":
+                gain = 2.0 if p.dim() == 4 else 1.0
+                _init_normal(p, gen, (gain / p[0].numel()) ** 0.5)
+            else:  # pos_embed, cls_token, rel_pos_h / rel_pos_w
+                _init_normal(p, gen, 0.1 if leaf.startswith("rel_pos") else 0.02)
+        heads = {
+            "nuclei_binary_map": model.nuclei_binary_map_decoder.decoder0_header[2],
+            "hv_map": model.hv_map_decoder.decoder0_header[2],
+            "nuclei_type_map": model.nuclei_type_maps_decoder.decoder0_header[2],
+        }
+        for head in heads.values():
+            head.bias.zero_()
+        probe = torch.randn((2, model.img_size, model.img_size, 3), generator=gen)
+        saved = model.dtype, model.halo_size
+        model.dtype, model.halo_size = torch.float32, 0  # whole maps, in float32
+        try:
+            out = model(probe)
+        finally:
+            model.dtype, model.halo_size = saved
+        for key, head in heads.items():
+            head.weight.div_(out[key].std().clamp(min=1e-6))
+    return model
+
+
 def make_random_local_model(
     architecture: str,
     num_classes: int,
@@ -251,45 +306,74 @@ def make_random_local_model(
     """Author a local config + random-weight torch checkpoint (tests, smoke
     runs). Returns (config_path, weights_path).
 
-    Weights come from a ``torch.Generator`` seeded with ``seed``: conv
-    kernels normal with variance 2/fan-in, linear 1/fan-in (the scales of the
-    flax initializers the JAX package uses); batch norms and biases keep
-    their identity init. With identity batch norms the features grow with
-    depth, so the head is then scaled to give unit-scale logits on a seeded
-    noise batch: probabilities that are not saturated keep the model's
-    numerics visible in comparisons.
+    Classifiers: weights from a ``torch.Generator`` seeded with ``seed``,
+    conv kernels normal with variance 2/fan-in, linear 1/fan-in (the scales
+    of the flax initializers the JAX package uses); batch norms and biases
+    keep their identity init. With identity batch norms the features grow
+    with depth, so the head is then scaled to give unit-scale logits on a
+    seeded noise batch: probabilities that are not saturated keep the
+    model's numerics visible in comparisons.
+
+    Cell architectures take the JAX package's cell config (256 px unless
+    given, halo 46, ToTensor + Normalize 0.5/0.5, ``end2end`` detection) and
+    ``randomize_cell_model``'s weights.
     """
-    from ..models import create_model
+    from ..models import create_model, is_cell_architecture
 
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    cfg = ModelConfiguration(
-        architecture=architecture,
-        num_classes=num_classes,
-        class_names=list(class_names or [f"class{i}" for i in range(num_classes)]),
-        patch_size_pixels=patch_size_pixels,
-        spacing_um_px=spacing_um_px,
-        transform=[
+    if is_cell_architecture(architecture):
+        if patch_size_pixels == 350:  # classifier default: use the cell default
+            patch_size_pixels = 256
+        if patch_size_pixels % 16:
+            raise ValueError(
+                f"cell architectures need patch_size_pixels divisible by 16"
+                f" (ViT patch embed + decoder upsampling), got {patch_size_pixels}"
+            )
+        transform = [
+            TransformConfigurationItem("ToTensor", None),
+            TransformConfigurationItem(
+                "Normalize", {"mean": [0.5, 0.5, 0.5], "std": [0.5, 0.5, 0.5]}
+            ),
+        ]
+        cell_fields = dict(
+            object_based=True,
+            object_detection=ObjectDetectionConfiguration(name="end2end"),
+            halo_size_pixels=46,
+        )
+        model = create_model(architecture, num_classes, halo_size=46, img_size=patch_size_pixels)
+        randomize_cell_model(model, seed)
+    else:
+        transform = [
             TransformConfigurationItem("Resize", {"size": resize_size}),
             TransformConfigurationItem("ToTensor", None),
             TransformConfigurationItem(
                 "Normalize",
                 {"mean": [0.485, 0.456, 0.406], "std": [0.229, 0.224, 0.225]},
             ),
-        ],
+        ]
+        cell_fields = {}
+        model = create_model(architecture, num_classes)
+        gen = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith("weight") and p.dim() in (2, 4):
+                    fan_in = p[0].numel()
+                    gain = 2.0 if p.dim() == 4 else 1.0
+                    p.copy_(torch.randn(p.shape, generator=gen) * (gain / fan_in) ** 0.5)
+                elif name.endswith("bias"):
+                    p.zero_()
+            probe = torch.randn((2, 3, resize_size, resize_size), generator=gen)
+            model.fc.weight.div_(model(probe).std().clamp(min=1e-6))
+    cfg = ModelConfiguration(
+        architecture=architecture,
+        num_classes=num_classes,
+        class_names=list(class_names or [f"class{i}" for i in range(num_classes)]),
+        patch_size_pixels=patch_size_pixels,
+        spacing_um_px=spacing_um_px,
+        transform=transform,
+        **cell_fields,
     )
-    model = create_model(architecture, num_classes)
-    gen = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if name.endswith("weight") and p.dim() in (2, 4):
-                fan_in = p[0].numel()
-                gain = 2.0 if p.dim() == 4 else 1.0
-                p.copy_(torch.randn(p.shape, generator=gen) * (gain / fan_in) ** 0.5)
-            elif name.endswith("bias"):
-                p.zero_()
-        probe = torch.randn((2, 3, resize_size, resize_size), generator=gen)
-        model.fc.weight.div_(model(probe).std().clamp(min=1e-6))
     config_path = out_dir / "config.json"
     weights_path = out_dir / "weights.pt"
     config_path.write_text(json.dumps(cfg.to_dict(), indent=2))
