@@ -12,7 +12,8 @@ every hand-written kernel against its plain torch version. Phases; any
 failure exits non-zero and prints no result line:
 
   (a) the card's name and power limit; no CUDA -> exit 1;
-  (b) build every kernel from the checkout's sources (one nvcc per source);
+  (b) build every kernel from the checkout's sources (one nvcc per source),
+      printing each kernel's registers and spills as ptxas reports them;
   (c) K1 (fused uint8 -> PIL resize -> normalize) vs its plain version on the
       card, f32 and bf16, at B=256 350->224, B=256 175->224 and B=3 97->64;
       K1's time over >= 20 launches (CUDA events) beside its bound;
@@ -22,16 +23,18 @@ failure exits non-zero and prints no result line:
       the kernels' launch counts over that run;
   (e) parity on the card vs the same engine on the CPU (8 patches, 1e-3),
       mixed vs parity (0.01), every row finite and summing to 1;
-  (f) K2 (fused window attention with SAM rel-pos) vs its plain version on
-      the card, f32 and bf16, at B=32 at the three shapes the cell path gives
-      it (SAM-H windowed and global, ViT-256's 257-token row); its time
-      beside its bound, its plain version and scaled_dot_product_attention
-      with the rel-pos bias as attn_mask;
+  (f) K2 (fused window attention with SAM rel-pos: f32 FMAs, bf16 tensor-core
+      mma.sync) vs its plain version on the card, f32 and bf16, at B=32 at the
+      three shapes the cell path gives it (SAM-H windowed and global,
+      ViT-256's 257-token row), and in bf16 at SAM-B's 1024 px global block
+      (B=1, n=4096); its time beside its bound, its plain version and
+      scaled_dot_product_attention with the rel-pos bias as attn_mask;
   (g) CellEngine for CellViT-SAM-H-x40 (init_random, seed 0), parity and
       bf16: 8 batches of B=32 seeded uint8 patches, one batch deep through
       device_postprocess -> scatter into a canvas on a 16x16 patch grid;
       patches/s, peak memory, K2 launches (32 per batch), device ms of the
-      forward and of the post-process, K2's share of the forward's device time;
+      forward and of the post-process, K2's share of the forward's device time
+      (which must be above 0: the trace found K2 by its kernel's name);
   (h) the same for CellViT-256-x40 (12 K2 launches per batch);
   (i) cell results: parity on the card vs the same engine on the CPU (2
       patches, maps <= 1e-3); bf16 vs parity canvases (max |d| of NP, HV, TP;
@@ -70,11 +73,14 @@ CARD_RATES = {
     "H100 NVL": (3.9e12, 60e12, 835e12),
     "H200": (4.8e12, 67e12, 989e12),
 }
-# K2 at the cell path's shapes: (name, qkv grid HP x WP, dim, heads, window, rel-pos).
+# K2 at the cell path's shapes, B=32 in both dtypes, and SAM-B's global block
+# at 1024 px (n=4096, 64 key tiles) at B=1 in bf16: (name, qkv grid HP x WP,
+# dim, heads, window, rel-pos, B, dtypes).
 K2_SHAPES = (
-    ("sam_h_windowed", (28, 28), 1280, 16, 14, True),
-    ("sam_h_global", (16, 16), 1280, 16, 0, True),
-    ("vit_256", (1, 257), 384, 6, 0, False),
+    ("sam_h_windowed", (28, 28), 1280, 16, 14, True, CELL_BATCH, ("float32", "bfloat16")),
+    ("sam_h_global", (16, 16), 1280, 16, 0, True, CELL_BATCH, ("float32", "bfloat16")),
+    ("vit_256", (1, 257), 384, 6, 0, False, CELL_BATCH, ("float32", "bfloat16")),
+    ("sam_b_1024_global", (64, 64), 768, 12, 0, True, 1, ("bfloat16",)),
 )
 # f32: the same sums in another order. bf16: JAX's bar for its bf16 kernel
 # (tests/test_flash_attn.py, 5e-2): the rel values are rounded to bf16 after
@@ -263,9 +269,8 @@ def main() -> int:
     logs = cuda_build.build()
     print(f"(b) built {len(logs)} kernel source(s) in {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"    {name}: {line.strip()}")
+        for line in cuda_build.ptxas_summary(log):
+            print(f"    {name}: {line}")
 
     # (c) ------------------------------------------------------------------
     handle = get_registered_model(MODEL)
@@ -374,11 +379,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # (f) ------------------------------------------------------------------
-    print(f"(f) K2 vs its plain version, B={CELL_BATCH}")
+    print("(f) K2 vs its plain version")
     k2 = {"max_abs_err": 0.0, "shapes": []}
-    for name, shape, dim, heads, window, rel in K2_SHAPES:
-        for dt in (torch.float32, torch.bfloat16):
-            qkv, rh, rw = k2_inputs(shape, dim, heads, window, rel, dt, dev, CELL_BATCH, rng)
+    for name, shape, dim, heads, window, rel, kb, dtypes in K2_SHAPES:
+        for dt in (getattr(torch, d) for d in dtypes):
+            qkv, rh, rw = k2_inputs(shape, dim, heads, window, rel, dt, dev, kb, rng)
             scale = (dim // heads) ** -0.5
             got = window_attention(qkv, heads, window, scale, rh, rw)
             want = window_attention_reference(qkv, heads, window, scale, rh, rw)
@@ -388,7 +393,7 @@ def main() -> int:
             excess = float((diff - atol - rtol * want.float().abs()).max())
             k2["max_abs_err"] = max(k2["max_abs_err"], float(diff.max()))
             check(got.shape == want.shape and bool(torch.isfinite(got).all()) and excess <= 0,
-                  f"{name} {str(dt)[6:]}: max |d| {float(diff.max()):.3g}"
+                  f"B={kb} {name} {str(dt)[6:]}: max |d| {float(diff.max()):.3g}"
                   f" (<= {atol:g} + {rtol:g}|x|)")
             ms = _cuda_ms(lambda: window_attention(qkv, heads, window, scale, rh, rw), reps=20)
             plain_ms = _cuda_ms(
@@ -397,10 +402,10 @@ def main() -> int:
             lib = sdpa_call(qkv, rh, rw, heads, window, scale)
             lib_ms = _cuda_ms(lib, reps=20)
             bound_ms, bound_by = k2_bound(qkv, got, rh, rw, heads, window, rates)
-            k2["shapes"].append({"shape": name, "dtype": str(dt)[6:], "ms": ms,
+            k2["shapes"].append({"shape": name, "b": kb, "dtype": str(dt)[6:], "ms": ms,
                                  "plain_ms": plain_ms, "bound_ms": bound_ms,
                                  "bound_by": bound_by, "library_ms": lib_ms})
-            print(f"    K2 {name} {str(dt)[6:]}: {ms * 1e3:.1f} us/launch over 20, bound"
+            print(f"    K2 B={kb} {name} {str(dt)[6:]}: {ms * 1e3:.1f} us/launch over 20, bound"
                   f" {bound_ms * 1e3:.1f} us ({bound_by}, {bound_ms / ms:.1%} of it), plain"
                   f" version {plain_ms:.3f} ms, scaled_dot_product_attention with the rel-pos"
                   f" mask {lib_ms * 1e3:.1f} us")
@@ -459,6 +464,8 @@ def main() -> int:
                   f"{mode}: K2 launches over the cell path {counts['window_attention']}"
                   f" ({per_batch} per batch x {CELL_BATCHES})")
             check(counts["fused_preprocess"] == 0, f"{mode}: K1 launches over the cell path 0")
+            check(share > 0, f"{mode}: K2's share of the forward's kernel time {share:.1%}"
+                  " (> 0: the trace finds K2's kernel by name)")
             del x, pred
         print(f"    {_smi('clocks.sm,power.draw,temperature.gpu')} (SM clock, power, temperature)")
 

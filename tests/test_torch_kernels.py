@@ -18,9 +18,12 @@ from wsinsight_tpu_torch.ops.fused_preprocess import (  # noqa: E402
     fused_preprocess_reference,
 )
 from wsinsight_tpu_torch.ops.flash_attn import (  # noqa: E402
+    _SMEM_MAX,
+    shared_memory_bytes,
     window_attention,
     window_attention_reference,
 )
+from wsinsight_tpu_torch.models.vit import SAM_VIT_B, SAM_VIT_H, SAM_VIT_L, VIT_256  # noqa: E402
 from wsinsight_tpu_torch.ops.preprocess import _pil_bilinear_weights  # noqa: E402
 
 MEAN = (0.7238, 0.5716, 0.6779)  # breast-tumor-resnet34.tcga-brca
@@ -116,21 +119,97 @@ def _k2_inputs(shape, dim, heads, window, rel, dtype, device, b=2, seed=0):
     return qkv, tables[0], tables[1]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name,shape,dim,heads,window,rel", K2_SHAPES, ids=[s[0] for s in K2_SHAPES])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_window_attention_matches_plain_version(cuda_device, name, shape, dim, heads, window,
-                                                rel, dtype):
-    qkv, rh, rw = _k2_inputs(shape, dim, heads, window, rel, getattr(torch, dtype), cuda_device)
+def _check_k2(qkv, heads, window, rh, rw):
+    """One launch of K2 against its plain version at K2_TOL."""
+    dim = qkv.shape[-1] // 3
     scale = (dim // heads) ** -0.5
     before = window_attention.launches
     got = window_attention(qkv, heads, window, scale, rh, rw)
     torch.cuda.synchronize()
     assert window_attention.launches == before + 1
     want = window_attention_reference(qkv, heads, window, scale, rh, rw)
-    assert got.shape == (qkv.shape[0], *shape, dim) and got.dtype == qkv.dtype
-    atol, rtol = K2_TOL[dtype]
+    assert got.shape == (*qkv.shape[:3], dim) and got.dtype == qkv.dtype
+    atol, rtol = K2_TOL[str(qkv.dtype)[6:]]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape,dim,heads,window,rel", K2_SHAPES, ids=[s[0] for s in K2_SHAPES])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_window_attention_matches_plain_version(cuda_device, name, shape, dim, heads, window,
+                                                rel, dtype):
+    qkv, rh, rw = _k2_inputs(shape, dim, heads, window, rel, getattr(torch, dtype), cuda_device)
+    _check_k2(qkv, heads, window, rh, rw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 80, 128])
+@pytest.mark.parametrize("rel", [True, False], ids=["rel", "plain"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_window_attention_each_instantiation(cuda_device, hd, rel, dtype):
+    """Every (head dim, rel-pos) instantiation of both kernels, on SAM-H's
+    windowed grid with 4 heads."""
+    qkv, rh, rw = _k2_inputs((28, 28), 4 * hd, 4, 14, rel, getattr(torch, dtype), cuda_device)
+    _check_k2(qkv, 4, 14, rh, rw)
+
+
+# Shapes beyond the main path's: ragged n (a 7-window, n=49) and a long
+# global row (SAM-B at 1024 px: 64x64 tokens, n=4096, 64 key tiles of online
+# softmax) at B=1, in both dtypes; and, for the bf16 kernel, qkv scaled by 8
+# so the running max moves a lot (scores 64x larger; the rel-pos tables
+# scaled by 1/8, so the rel values keep the magnitude, and the one-ulp
+# argument, of K2_TOL). f32's bar is for unit-scale scores: two f32 sums in
+# another order differ by about |S| * 2**-24, which exp carries into the
+# output, so at |S| ~ 64 they differ by more than 2e-5 whoever is right.
+K2_EDGES = [
+    ("window_7", (14, 14), 384, 6, 7, True, 1.0, 2, "float32"),
+    ("window_7", (14, 14), 384, 6, 7, True, 1.0, 2, "bfloat16"),
+    ("sam_b_1024_global", (64, 64), 768, 12, 0, True, 1.0, 1, "float32"),
+    ("sam_b_1024_global", (64, 64), 768, 12, 0, True, 1.0, 1, "bfloat16"),
+    ("sam_h_windowed_x8", (28, 28), 1280, 16, 14, True, 8.0, 2, "bfloat16"),
+    ("vit_256_x8", (1, 257), 384, 6, 0, False, 8.0, 2, "bfloat16"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape,dim,heads,window,rel,mult,b,dtype", K2_EDGES,
+                         ids=[f"{s[-1]}-{s[0]}" for s in K2_EDGES])
+def test_window_attention_edges(cuda_device, name, shape, dim, heads, window, rel, mult, b,
+                                dtype):
+    qkv, rh, rw = _k2_inputs(shape, dim, heads, window, rel, getattr(torch, dtype), cuda_device,
+                             b=b)
+    if mult != 1.0:
+        qkv = (qkv.float() * mult).to(qkv.dtype)
+        if rel:
+            rh, rw = ((t.float() / mult).to(t.dtype) for t in (rh, rw))
+    _check_k2(qkv, heads, window, rh, rw)
+
+
+def _zoo_k2_shapes():
+    """(hd, ah, aw, rel) of every K2 launch the zoo's SAM-B/L/H (256 and
+    1024 px inputs) and ViT-256 encoders make."""
+    shapes = []
+    for cfg in (SAM_VIT_B, SAM_VIT_L, SAM_VIT_H):
+        hd = cfg.embed_dim // cfg.num_heads
+        shapes.append((hd, cfg.window_size, cfg.window_size, True))
+        shapes += [(hd, g, g, True) for g in (16, 64)]
+    shapes.append((VIT_256.embed_dim // VIT_256.num_heads, 1, 257, False))
+    return shapes
+
+
+@pytest.mark.parametrize("hd,ah,aw,rel", _zoo_k2_shapes())
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_shared_memory_fits(hd, ah, aw, rel, dtype):
+    """K2's dynamic shared memory is the documented formula and fits a
+    Hopper CTA's 227 KB at every shape the zoo gives it."""
+    dt = getattr(torch, dtype)
+    if dt == torch.bfloat16:  # 2 stages of K and V rows of hd + 8; 128 rel rows of 8 mod 32
+        rows, tiles, stride = 128, 2 * 2 * 64 * (hd + 8) * 2, -(-(ah + aw - 8) // 32) * 32 + 8
+    else:  # K and V rows of hd; 64 rel rows of an odd stride
+        rows, tiles, stride = 64, 2 * 64 * hd * 4, (ah + aw) | 1
+    assert stride >= ah + aw
+    assert shared_memory_bytes(hd, ah, aw, rel, dt) == tiles + (rows * stride * 4 if rel else 0)
+    assert shared_memory_bytes(hd, ah, aw, rel, dt) <= _SMEM_MAX == 227 * 1024
 
 
 @pytest.mark.cuda

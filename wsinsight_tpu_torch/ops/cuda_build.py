@@ -86,3 +86,25 @@ def load_library(source: str) -> ctypes.CDLL:
     """The loaded library of ``source``, built first if needed."""
     build((source,))
     return ctypes.CDLL(str(library_path(source)))
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One line per kernel of an nvcc -Xptxas=-v log: its name (demangled
+    where c++filt is there), registers and spills."""
+    names, stats, spill = [], [], ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            names.append(line.split("'")[1])
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and len(stats) < len(names):
+            stats.append(f"{line.split('Used', 1)[1].split(',')[0].strip()}; {spill}")
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60, check=True).stdout.splitlines()
+        if len(out) == len(names):
+            names = [n.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+                     for n in out]
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return [f"{n}: {st}" for n, st in zip(names, stats)]

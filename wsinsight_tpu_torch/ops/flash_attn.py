@@ -1,11 +1,23 @@
 """K2: fused multi-head window attention with SAM's decomposed rel-pos.
 
-Counterpart of wsinsight_tpu/ops/flash_attn.py. The CUDA kernel is
-``csrc/window_attention.cu`` (its header states its bound and design);
-``window_attention_reference`` is the plain torch version of the same
-contract. ``window_attention`` dispatches on where the qkv grid lies: a CUDA
-tensor goes to the kernel (or raises), a CPU tensor to the plain version.
-Nothing else.
+Counterpart of wsinsight_tpu/ops/flash_attn.py; both CUDA kernels replace the
+TPU kernel built by ``_make_kernel`` there (``flash_attn.py:87``, launched at
+``:195``). They live in ``csrc/window_attention.cu``, whose header states
+their bounds and designs; ``window_attention_reference`` is the plain torch
+version of the same contract. ``window_attention`` dispatches on where the
+qkv grid lies: a CUDA tensor goes to a kernel (or raises), a CPU tensor to
+the plain version. Nothing else.
+
+* float32: every product an f32 FMA (``window_attention_kernel``); bound by
+  operations (403 µs at CellViT-SAM-H's windowed shape, B=32, at an H100
+  SXM's 67 TFLOP/s of f32 FMAs).
+* bfloat16: QKᵀ, PV and the rel-pos dot products as bf16 tensor-core
+  products, ``mma.sync`` m16n8k16 with f32 accumulators
+  (``window_attention_kernel_mma``); bound by bytes (76.7 µs at the same
+  shape: 257 MB at 3.35 TB/s). So it keeps q, K, V and P in bf16: q as
+  register fragments, K and V as bf16 shared-memory tiles (double-buffered by
+  ``cp.async``), P converted in registers from the score accumulators; 128
+  query rows per CTA, so a window's K and V are staged once per 128 rows.
 
 Contract (the TPU kernel's, ``flash_attn.py:87-125``), per (image, window,
 head), with q, k, v the head's slices of the window's tokens (row-major):
@@ -35,7 +47,8 @@ from .cuda_build import load_library
 _SOURCE = "window_attention.cu"
 _HEAD_DIMS = (32, 64, 80, 128)  # the kernel's instantiations
 _SMEM_MAX = 227 * 1024
-_TILE = 64  # query rows per CTA and keys per shared-memory tile
+_TILE = 64  # keys per shared-memory tile; query rows per CTA of the f32 kernel
+_MMA_ROWS = 128  # query rows per CTA of the bf16 kernel: 8 warps of one m16 tile
 
 
 def _geometry(shape: torch.Size, num_heads: int, window: int):
@@ -91,7 +104,11 @@ def window_attention_reference(
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    lib = load_library(_SOURCE)
+    return bind(load_library(_SOURCE))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points of a library built from ``_SOURCE``."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.wsi_window_attention.argtypes = [
         ptr, ptr, ptr, ptr, i32, i32,  # qkv, out, rh, rw, bf16, head dim
@@ -104,10 +121,19 @@ def _kernel():
     return lib
 
 
-def shared_memory_bytes(hd: int, ah: int, aw: int, with_rel: bool) -> int:
-    """Dynamic shared memory of one CTA: the K and V tiles in float32, plus
-    each query row's rel_h and rel_w values (row stride made odd)."""
-    return 2 * _TILE * hd * 4 + (_TILE * ((ah + aw) | 1) * 4 if with_rel else 0)
+def shared_memory_bytes(hd: int, ah: int, aw: int, with_rel: bool, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one CTA: the K and V tiles plus each query
+    row's ah + aw rel values in float32. float32: 64 query rows, tiles of
+    rows of hd, rel rows of an odd stride. bfloat16: 128 query rows, two
+    stages of K and V tiles (q is staged in the second) in rows of hd + 8,
+    and rel rows of a stride that is 8 mod 32 (``rel_stride`` in the .cu)."""
+    if dtype == torch.bfloat16:
+        rows, tiles = _MMA_ROWS, 2 * 2 * _TILE * (hd + 8) * 2
+        stride = ah + aw + ((8 - (ah + aw)) & 31)
+    else:
+        rows, tiles = _TILE, 2 * _TILE * hd * 4
+        stride = (ah + aw) | 1
+    return tiles + (rows * stride * 4 if with_rel else 0)
 
 
 def window_attention(
@@ -152,15 +178,25 @@ def window_attention(
                 )
             if not t.is_contiguous() or t.data_ptr() % 16:
                 raise ValueError(f"window_attention: {name} must be contiguous and 16-byte aligned")
-    if shared_memory_bytes(hd, ah, aw, rh is not None) > _SMEM_MAX:
+    if shared_memory_bytes(hd, ah, aw, rh is not None, qkv.dtype) > _SMEM_MAX:
         raise ValueError(f"window_attention: a {ah}x{aw} window does not fit shared memory")
     n_tiles = -(-(ah * aw) // _TILE)
-    if num_heads > 65535 or n_tiles > 65535:
-        raise ValueError("window_attention: heads or query tiles exceed the grid's 65535")
+    if num_heads > 65535 or n_tiles > 65535 or ah * aw >= 2**21:
+        raise ValueError("window_attention: heads or query tiles exceed the grid's 65535,"
+                         " or a window holds 2**21 tokens or more")
     out = torch.empty((b, hp, wp, dim), dtype=qkv.dtype, device=qkv.device)
     if out.numel() == 0:
         return out
-    lib = _kernel()
+    launch(_kernel(), qkv, out, num_heads, window, scale, rh, rw)
+    window_attention.launches += 1
+    return out
+
+
+def launch(lib, qkv, out, num_heads, window, scale, rh=None, rw=None) -> None:
+    """One launch of ``lib``'s ``wsi_window_attention`` (``bind`` declared it)
+    on inputs that ``window_attention`` has checked. Counts nothing."""
+    b, hp, wp, _ = qkv.shape
+    dim, hd, ah, aw, gh, gw = _geometry(qkv.shape, num_heads, window)
     with torch.cuda.device(qkv.device):
         err = lib.wsi_window_attention(
             qkv.data_ptr(), out.data_ptr(),
@@ -174,8 +210,6 @@ def window_attention(
         raise RuntimeError(
             f"window_attention launch failed: {lib.wsi_cuda_error_string(err).decode()}"
         )
-    window_attention.launches += 1
-    return out
 
 
 window_attention.launches = 0
