@@ -23,12 +23,16 @@ failure exits non-zero and prints no result line:
       the kernels' launch counts over that run;
   (e) parity on the card vs the same engine on the CPU (8 patches, 1e-3),
       mixed vs parity (0.01), every row finite and summing to 1;
-  (f) K2 (fused window attention with SAM rel-pos: f32 FMAs, bf16 tensor-core
-      mma.sync) vs its plain version on the card, f32 and bf16, at B=32 at the
-      three shapes the cell path gives it (SAM-H windowed and global,
-      ViT-256's 257-token row), and in bf16 at SAM-B's 1024 px global block
-      (B=1, n=4096); its time beside its bound, its plain version and
-      scaled_dot_product_attention with the rel-pos bias as attn_mask;
+  (f) K2 (fused window attention with SAM rel-pos on the tensor cores:
+      3xTF32 mma.sync in f32, bf16 mma.sync) vs its plain version on the
+      card, f32 and bf16, on the real rows, at B=32 at the three shapes the
+      cell path gives it (SAM-H windowed with its real 16x16 extent,
+      valid=(16, 16), as the model launches it, and in f32 also at every
+      row; SAM-H global; ViT-256's 257-token row), and in bf16 at SAM-B's
+      1024 px global block (B=1, n=4096); its time beside its bound (real
+      rows only), its plain version and scaled_dot_product_attention with
+      the rel-pos bias as attn_mask (every row: the call the model would
+      make instead);
   (g) CellEngine for CellViT-SAM-H-x40 (init_random, seed 0), parity and
       bf16: 8 batches of B=32 seeded uint8 patches, one batch deep through
       device_postprocess -> scatter into a canvas on a 16x16 patch grid;
@@ -66,21 +70,24 @@ CELL_BATCH = 32
 CELL_GRID = 16  # the cell canvas is a CELL_GRID x CELL_GRID grid of patches
 
 # Data-sheet rates by card name: (bytes/s, fp32 FLOP/s outside the tensor
-# cores, dense bf16 tensor-core FLOP/s).
+# cores, dense bf16 tensor-core FLOP/s, dense TF32 tensor-core FLOP/s).
 CARD_RATES = {
-    "H100 80GB HBM3": (3.35e12, 67e12, 989e12),  # H100 SXM
-    "H100 PCIe": (2.0e12, 51e12, 756e12),
-    "H100 NVL": (3.9e12, 60e12, 835e12),
-    "H200": (4.8e12, 67e12, 989e12),
+    "H100 80GB HBM3": (3.35e12, 67e12, 989e12, 494.7e12),  # H100 SXM
+    "H100 PCIe": (2.0e12, 51e12, 756e12, 378e12),
+    "H100 NVL": (3.9e12, 60e12, 835e12, 417.5e12),
+    "H200": (4.8e12, 67e12, 989e12, 494.7e12),
 }
 # K2 at the cell path's shapes, B=32 in both dtypes, and SAM-B's global block
 # at 1024 px (n=4096, 64 key tiles) at B=1 in bf16: (name, qkv grid HP x WP,
-# dim, heads, window, rel-pos, B, dtypes).
+# dim, heads, window, rel-pos, B, dtypes, valid). SAM-H's windowed blocks
+# run on its 16x16 grid padded to 28x28.
 K2_SHAPES = (
-    ("sam_h_windowed", (28, 28), 1280, 16, 14, True, CELL_BATCH, ("float32", "bfloat16")),
-    ("sam_h_global", (16, 16), 1280, 16, 0, True, CELL_BATCH, ("float32", "bfloat16")),
-    ("vit_256", (1, 257), 384, 6, 0, False, CELL_BATCH, ("float32", "bfloat16")),
-    ("sam_b_1024_global", (64, 64), 768, 12, 0, True, 1, ("bfloat16",)),
+    ("sam_h_windowed", (28, 28), 1280, 16, 14, True, CELL_BATCH, ("float32", "bfloat16"),
+     (16, 16)),
+    ("sam_h_windowed_all_rows", (28, 28), 1280, 16, 14, True, CELL_BATCH, ("float32",), None),
+    ("sam_h_global", (16, 16), 1280, 16, 0, True, CELL_BATCH, ("float32", "bfloat16"), None),
+    ("vit_256", (1, 257), 384, 6, 0, False, CELL_BATCH, ("float32", "bfloat16"), None),
+    ("sam_b_1024_global", (64, 64), 768, 12, 0, True, 1, ("bfloat16",), None),
 )
 # f32: the same sums in another order. bf16: JAX's bar for its bf16 kernel
 # (tests/test_flash_attn.py, 5e-2): the rel values are rounded to bf16 after
@@ -138,21 +145,25 @@ def k1_bound(b, h, w, oh, ow, out_bytes, rates):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k2_bound(qkv, out, rh, rw, heads, window, rates):
-    """(least ms, what bounds it) for K2: qkv (and the rel-pos tables) read
-    once, the output written once; 4*n^2*hd FLOP per (window, head) for
-    QK^T and PV plus 2*n*(ah+aw)*hd for rel-pos, at the dtype's peak (bf16
-    tensor cores, or f32 FMAs)."""
+def k2_bound(qkv, rh, rw, heads, window, valid, rates):
+    """(least ms, what bounds it) for K2 on the real query rows of
+    ``valid`` (h x w of the grid): k and v of every token, q of the real
+    tokens and the rel-pos tables read once, the real rows of the output
+    written once; per real query row and head, 4*n*hd FLOP for QK^T and PV
+    plus 2*(ah+aw)*hd for rel-pos, at the dtype's tensor-core peak: bf16,
+    or in f32 three TF32 products for each (3xTF32)."""
     import torch
 
     b, hp, wp, c3 = qkv.shape
-    hd = c3 // 3 // heads
+    dim, elt = c3 // 3, qkv.element_size()
+    hd = dim // heads
+    h, w = valid or (hp, wp)
     ah, aw = (window, window) if window else (hp, wp)
-    n, nw = ah * aw, (hp // ah) * (wp // aw)
-    nbytes = sum(t.numel() * t.element_size() for t in (qkv, out, rh, rw) if t is not None)
-    flops = b * nw * heads * (4 * n * n * hd + (2 * n * (ah + aw) * hd if rh is not None else 0))
-    peak = rates[2] if qkv.dtype == torch.bfloat16 else rates[1]
-    t_bytes, t_ops = nbytes / rates[0] * 1e3, flops / peak * 1e3
+    nbytes = (b * hp * wp * 2 * dim + 2 * b * h * w * dim) * elt
+    nbytes += sum(t.numel() * t.element_size() for t in (rh, rw) if t is not None)
+    flops = b * h * w * heads * (4 * ah * aw * hd + (2 * (ah + aw) * hd if rh is not None else 0))
+    t_ops = flops / rates[2] if qkv.dtype == torch.bfloat16 else 3 * flops / rates[3]
+    t_bytes, t_ops = nbytes / rates[0] * 1e3, t_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -259,7 +270,7 @@ def main() -> int:
     print(card)
     print(f"(a) torch {torch.__version__} CUDA {torch.version.cuda}; {kind};"
           f" data-sheet rates {rates[0] / 1e12:.2f} TB/s, fp32 {rates[1] / 1e12:.0f} TFLOP/s,"
-          f" bf16 {rates[2] / 1e12:.0f} TFLOP/s")
+          f" bf16 {rates[2] / 1e12:.0f} TFLOP/s, tf32 {rates[3] / 1e12:.1f} TFLOP/s")
     check = Checks()
     dev = torch.device("cuda", 0)
     kernels = {fused_preprocess: "fused_preprocess", window_attention: "window_attention"}
@@ -381,34 +392,39 @@ def main() -> int:
     # (f) ------------------------------------------------------------------
     print("(f) K2 vs its plain version")
     k2 = {"max_abs_err": 0.0, "shapes": []}
-    for name, shape, dim, heads, window, rel, kb, dtypes in K2_SHAPES:
+    for name, shape, dim, heads, window, rel, kb, dtypes, valid in K2_SHAPES:
+        h, w = valid or shape
         for dt in (getattr(torch, d) for d in dtypes):
             qkv, rh, rw = k2_inputs(shape, dim, heads, window, rel, dt, dev, kb, rng)
             scale = (dim // heads) ** -0.5
-            got = window_attention(qkv, heads, window, scale, rh, rw)
-            want = window_attention_reference(qkv, heads, window, scale, rh, rw)
+            got = window_attention(qkv, heads, window, scale, rh, rw, valid)
+            want = window_attention_reference(qkv, heads, window, scale, rh, rw, valid)
             torch.cuda.synchronize()
-            diff = (got.float() - want.float()).abs()
+            got_real, want_real = got[:, :h, :w].float(), want[:, :h, :w].float()
+            diff = (got_real - want_real).abs()
             atol, rtol = K2_TOL[str(dt)[6:]]
-            excess = float((diff - atol - rtol * want.float().abs()).max())
+            excess = float((diff - atol - rtol * want_real.abs()).max())
             k2["max_abs_err"] = max(k2["max_abs_err"], float(diff.max()))
-            check(got.shape == want.shape and bool(torch.isfinite(got).all()) and excess <= 0,
-                  f"B={kb} {name} {str(dt)[6:]}: max |d| {float(diff.max()):.3g}"
-                  f" (<= {atol:g} + {rtol:g}|x|)")
-            ms = _cuda_ms(lambda: window_attention(qkv, heads, window, scale, rh, rw), reps=20)
+            check(got.shape == want.shape and bool(torch.isfinite(got_real).all())
+                  and excess <= 0,
+                  f"B={kb} {name} {str(dt)[6:]}: max |d| {float(diff.max()):.3g} on the"
+                  f" {h}x{w} real rows (<= {atol:g} + {rtol:g}|x|)")
+            ms = _cuda_ms(lambda: window_attention(qkv, heads, window, scale, rh, rw, valid),
+                          reps=20)
             plain_ms = _cuda_ms(
-                lambda: window_attention_reference(qkv, heads, window, scale, rh, rw), reps=5,
-                warmup=1)
+                lambda: window_attention_reference(qkv, heads, window, scale, rh, rw, valid),
+                reps=5, warmup=1)
             lib = sdpa_call(qkv, rh, rw, heads, window, scale)
             lib_ms = _cuda_ms(lib, reps=20)
-            bound_ms, bound_by = k2_bound(qkv, got, rh, rw, heads, window, rates)
-            k2["shapes"].append({"shape": name, "b": kb, "dtype": str(dt)[6:], "ms": ms,
-                                 "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                 "bound_by": bound_by, "library_ms": lib_ms})
+            bound_ms, bound_by = k2_bound(qkv, rh, rw, heads, window, valid, rates)
+            k2["shapes"].append({"shape": name, "b": kb, "dtype": str(dt)[6:], "valid": [h, w],
+                                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                 "bound_by": bound_by, "library_ms": lib_ms,
+                                 "max_abs_err": float(diff.max())})
             print(f"    K2 B={kb} {name} {str(dt)[6:]}: {ms * 1e3:.1f} us/launch over 20, bound"
-                  f" {bound_ms * 1e3:.1f} us ({bound_by}, {bound_ms / ms:.1%} of it), plain"
-                  f" version {plain_ms:.3f} ms, scaled_dot_product_attention with the rel-pos"
-                  f" mask {lib_ms * 1e3:.1f} us")
+                  f" {bound_ms * 1e3:.1f} us ({bound_by} bound, {bound_ms / ms:.1%} of it),"
+                  f" plain version {plain_ms:.3f} ms, scaled_dot_product_attention with the"
+                  f" rel-pos mask at every row {lib_ms * 1e3:.1f} us")
             del qkv, rh, rw, got, want, diff, lib
     torch.cuda.empty_cache()
 
@@ -509,7 +525,8 @@ def main() -> int:
     ms, plain_ms, bound_ms, bound_by = timing[torch.bfloat16]
     # K2's headline shape: SAM-H's windowed blocks in bf16, 28 of every 32
     # launches on the SAM-H path; every shape and dtype is under "shapes".
-    k2_main = k2["shapes"][1]
+    k2_main = next(s for s in k2["shapes"]
+                   if s["shape"] == "sam_h_windowed" and s["dtype"] == "bfloat16")
     k2_launches = sum(st["launches"]["window_attention"]
                       for stats in cell.values() for st in stats.values())
     record = {"kernels": [{

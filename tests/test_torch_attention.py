@@ -20,7 +20,10 @@ from wsinsight_tpu.ops.flash_attn import window_attention as jax_window_attentio
 from wsinsight_tpu_torch.models.convert import flax_params_to_state_dict  # noqa: E402
 from wsinsight_tpu_torch.models.layers import compute_in  # noqa: E402
 from wsinsight_tpu_torch.models.vit import Attention, Block, _get_rel_pos  # noqa: E402
-from wsinsight_tpu_torch.ops.flash_attn import window_attention_reference  # noqa: E402
+from wsinsight_tpu_torch.ops.flash_attn import (  # noqa: E402
+    window_attention,
+    window_attention_reference,
+)
 from wsinsight_tpu_torch.ops.resize import linear_resize_weights  # noqa: E402
 
 
@@ -103,6 +106,59 @@ def test_reference_matches_jax_kernel(case, dtype):
     atol, rtol = TOL[dtype]
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
                                atol=atol, rtol=rtol)
+
+
+# (name, grid HP x WP, heads, head dim, window, valid (h, w), with rel-pos):
+# SAM-style padded windows whose real rows the kernel alone computes. The
+# SMALL["sam_512"] cell model's 3x3 windows on a 4x4 grid padded to 6x6 (9,
+# 3, 3 and 1 real rows), a ragged extent, and SAM-H's 16x16 grid padded to
+# 28x28 (196, 28, 28 and 4 real rows of 14x14 windows).
+VALID_CASES = [
+    ("sam_512_rel", (6, 6), 8, 64, 3, (4, 4), True),
+    ("sam_512", (6, 6), 8, 64, 3, (4, 4), False),
+    ("ragged_rel", (6, 9), 2, 16, 3, (5, 7), True),
+    ("sam_h_grid_rel", (28, 28), 2, 16, 14, (16, 16), True),
+]
+
+
+@pytest.mark.parametrize("case", VALID_CASES, ids=[c[0] for c in VALID_CASES])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reference_real_rows_match_full_grid(case, dtype):
+    """With ``valid`` the plain version gives the full grid's real rows, bit
+    for bit, the JAX kernel's real rows within TOL, and NaN elsewhere."""
+    _, (hp, wp), heads, hd, window, (h, w), rel = case
+    rng = np.random.default_rng(7)
+    qkv = rng.standard_normal((2, hp, wp, 3 * heads * hd)).astype(np.float32)
+    rh = rw = None
+    if rel:
+        rh = _toeplitz(rng.standard_normal((2 * window - 1, hd)).astype(np.float32) * 0.5, window)
+        rw = _toeplitz(rng.standard_normal((2 * window - 1, hd)).astype(np.float32) * 0.5, window)
+    tdt, jdt, scale = getattr(torch, dtype), jnp.dtype(dtype), hd**-0.5
+    tables = [None if t is None else torch.from_numpy(t).to(tdt) for t in (rh, rw)]
+    full = window_attention_reference(torch.from_numpy(qkv).to(tdt), heads, window, scale, *tables)
+    got = window_attention_reference(torch.from_numpy(qkv).to(tdt), heads, window, scale, *tables,
+                                     valid=(h, w))
+    assert got.shape == full.shape and got.dtype == tdt
+    assert torch.equal(got[:, :h, :w], full[:, :h, :w])
+    pad = torch.ones(hp, wp, dtype=torch.bool)
+    pad[:h, :w] = False
+    assert bool(got[:, pad].isnan().all()) and not bool(got[:, ~pad].isnan().any())
+    want = jax_window_attention(
+        jnp.asarray(qkv, jdt), heads, window, scale,
+        *(None if t is None else jnp.asarray(t, jdt) for t in (rh, rw)), interpret=True)
+    atol, rtol = TOL[dtype]
+    np.testing.assert_allclose(got[:, :h, :w].float().numpy(),
+                               np.asarray(want, np.float32)[:, :h, :w], atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("window,valid", [(3, (0, 4)), (3, (4, -1)), (3, (7, 4)), (3, (4, 7)),
+                                          (0, (4, 4)), (0, (6, 5))])
+def test_valid_rejects_bad_extent(window, valid):
+    """Non-positive sizes, sizes past the grid, and global attention with
+    less than the whole grid raise (the wrapper's check, on the CPU too)."""
+    qkv = torch.zeros((1, 6, 6, 96))
+    with pytest.raises(ValueError, match="valid"):
+        window_attention(qkv, 2, window, 0.25, valid=valid)
 
 
 def test_reference_bf16_rounds_like_jax_kernel():

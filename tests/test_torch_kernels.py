@@ -119,18 +119,21 @@ def _k2_inputs(shape, dim, heads, window, rel, dtype, device, b=2, seed=0):
     return qkv, tables[0], tables[1]
 
 
-def _check_k2(qkv, heads, window, rh, rw):
-    """One launch of K2 against its plain version at K2_TOL."""
+def _check_k2(qkv, heads, window, rh, rw, valid=None):
+    """One launch of K2 against its plain version at K2_TOL, on the real
+    rows of ``valid`` (every row without it)."""
     dim = qkv.shape[-1] // 3
     scale = (dim // heads) ** -0.5
     before = window_attention.launches
-    got = window_attention(qkv, heads, window, scale, rh, rw)
+    got = window_attention(qkv, heads, window, scale, rh, rw, valid)
     torch.cuda.synchronize()
     assert window_attention.launches == before + 1
-    want = window_attention_reference(qkv, heads, window, scale, rh, rw)
+    want = window_attention_reference(qkv, heads, window, scale, rh, rw, valid)
     assert got.shape == (*qkv.shape[:3], dim) and got.dtype == qkv.dtype
+    h, w = valid or qkv.shape[1:3]
     atol, rtol = K2_TOL[str(qkv.dtype)[6:]]
-    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(got[:, :h, :w].float(), want[:, :h, :w].float(), atol=atol,
+                               rtol=rtol)
 
 
 @pytest.mark.cuda
@@ -153,6 +156,26 @@ def test_window_attention_each_instantiation(cuda_device, hd, rel, dtype):
     _check_k2(qkv, 4, 14, rh, rw)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 80, 128])
+@pytest.mark.parametrize("rel", [True, False], ids=["rel", "plain"])
+def test_window_attention_real_rows_each_instantiation(cuda_device, hd, rel):
+    """The f32 kernel with SAM-H's valid=(16, 16) on its 28x28 grid: windows
+    of 196, 28, 28 and 4 real rows, every other row unwritten."""
+    qkv, rh, rw = _k2_inputs((28, 28), 4 * hd, 4, 14, rel, torch.float32, cuda_device)
+    _check_k2(qkv, 4, 14, rh, rw, valid=(16, 16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_window_attention_real_rows_main_shape(cuda_device, dtype):
+    """SAM-H's windowed launch as the model makes it (16 heads of 80,
+    valid=(16, 16)): the f32 kernel computes the real rows only, the bf16
+    one every row; both hold on the real rows."""
+    qkv, rh, rw = _k2_inputs((28, 28), 1280, 16, 14, True, getattr(torch, dtype), cuda_device)
+    _check_k2(qkv, 16, 14, rh, rw, valid=(16, 16))
+
+
 # Shapes beyond the main path's: ragged n (a 7-window, n=49) and a long
 # global row (SAM-B at 1024 px: 64x64 tokens, n=4096, 64 key tiles of online
 # softmax) at B=1, in both dtypes; and, for the bf16 kernel, qkv scaled by 8
@@ -169,6 +192,12 @@ K2_EDGES = [
     ("sam_h_windowed_x8", (28, 28), 1280, 16, 14, True, 8.0, 2, "bfloat16"),
     ("vit_256_x8", (1, 257), 384, 6, 0, False, 8.0, 2, "bfloat16"),
 ]
+# Real rows with ragged key tiles (n=49: windows of 49, 28, 21 and 12 real
+# rows) and with whole windows past the real extent (no real rows).
+K2_VALID_EDGES = [
+    ("window_7_valid", (14, 14), 384, 6, 7, True, (10, 11)),
+    ("empty_windows", (28, 28), 1280, 16, 14, True, (10, 12)),
+]
 
 
 @pytest.mark.cuda
@@ -183,6 +212,15 @@ def test_window_attention_edges(cuda_device, name, shape, dim, heads, window, re
         if rel:
             rh, rw = ((t.float() / mult).to(t.dtype) for t in (rh, rw))
     _check_k2(qkv, heads, window, rh, rw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape,dim,heads,window,rel,valid", K2_VALID_EDGES,
+                         ids=[s[0] for s in K2_VALID_EDGES])
+def test_window_attention_real_rows_edges(cuda_device, name, shape, dim, heads, window, rel,
+                                          valid):
+    qkv, rh, rw = _k2_inputs(shape, dim, heads, window, rel, torch.float32, cuda_device)
+    _check_k2(qkv, heads, window, rh, rw, valid)
 
 
 def _zoo_k2_shapes():
@@ -203,11 +241,12 @@ def test_shared_memory_fits(hd, ah, aw, rel, dtype):
     """K2's dynamic shared memory is the documented formula and fits a
     Hopper CTA's 227 KB at every shape the zoo gives it."""
     dt = getattr(torch, dtype)
-    if dt == torch.bfloat16:  # 2 stages of K and V rows of hd + 8; 128 rel rows of 8 mod 32
-        rows, tiles, stride = 128, 2 * 2 * 64 * (hd + 8) * 2, -(-(ah + aw - 8) // 32) * 32 + 8
-    else:  # K and V rows of hd; 64 rel rows of an odd stride
-        rows, tiles, stride = 64, 2 * 64 * hd * 4, (ah + aw) | 1
-    assert stride >= ah + aw
+    stride = -(-(ah + aw - 8) // 32) * 32 + 8  # rel rows of 8 mod 32
+    if dt == torch.bfloat16:  # 2 stages of 64 K and V rows of hd + 8 (q in one); 128 rows
+        row, rows, tiles = (hd + 8) * 2, 128, 2 * 2 * 64 * (hd + 8) * 2
+    else:  # 2 stages of 32 K and V rows of hd + 4, and 64 q rows; 64 rows
+        row, rows, tiles = (hd + 4) * 4, 64, (2 * 2 * 32 + 64) * (hd + 4) * 4
+    assert stride >= ah + aw and row % 16 == 0
     assert shared_memory_bytes(hd, ah, aw, rel, dt) == tiles + (rows * stride * 4 if rel else 0)
     assert shared_memory_bytes(hd, ah, aw, rel, dt) <= _SMEM_MAX == 227 * 1024
 
@@ -224,4 +263,6 @@ def test_window_attention_rejects_bad_input(cuda_device):
         window_attention(qkv, 16, 13, 0.1)
     with pytest.raises(ValueError):  # rel-pos table of another dtype
         window_attention(qkv, 16, 14, 0.1, rh.bfloat16(), rw.bfloat16())
+    with pytest.raises(ValueError):  # real extent past the grid
+        window_attention(qkv, 16, 14, 0.1, rh, rw, valid=(16, 29))
     assert window_attention.launches == before

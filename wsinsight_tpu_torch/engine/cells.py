@@ -14,7 +14,7 @@ drives it one batch deep with the stitcher's device half::
         pending = (maps, batch.coords, batch.n_valid)
 
 The slide I/O and the host finalize around it are not ported yet
-(``ROADMAP.md``, queue 3).
+(``ROADMAP.md``, Queue 1, items 1 and 2).
 """
 
 from __future__ import annotations

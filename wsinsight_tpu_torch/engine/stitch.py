@@ -5,7 +5,8 @@ device: softmax, bilinear resize of the patch maps to slide space, HV scaling
 by model_mpp/slide_mpp and per-pixel TP renormalisation
 (``make_map_postprocess``); then one transfer of the resized maps, in the
 chosen dtype, into host canvases (``scatter``). The host finalize, the tiled
-watershed instance extraction, is not ported yet (``ROADMAP.md``, queue 3).
+watershed instance extraction, is not ported yet (``ROADMAP.md``, Queue 1,
+item 2).
 
 Memory note: the canvases are (H, W) f32 + (H, W, 2) f32 + (H, W, K) f32,
 (12+4K) bytes/px; above WSINSIGHT_CANVAS_MEMMAP_BYTES they are backed by
@@ -186,5 +187,5 @@ class TileRemapStitcher:
         """Tiled watershed instance extraction: not ported yet."""
         raise NotImplementedError(
             "TileRemapStitcher.finalize (hv_postproc, watershed) is not yet ported to"
-            " torch (ROADMAP.md, queue 3)"
+            " torch (ROADMAP.md, Queue 1, item 2: the cell path's host half)"
         )

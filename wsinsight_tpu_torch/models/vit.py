@@ -11,7 +11,8 @@ compute dtype, bfloat16 running under autocast.
 On the card every attention core is K2 (``ops.flash_attn.window_attention``);
 on the CPU the same call runs its plain version. The port has no switch for
 it. Virchow's SwiGLU, LayerScale and native-grid interpolation, and the
-H-Optimus ``FoundationViT``, are not ported yet (``ROADMAP.md``, queue 3).
+H-Optimus ``FoundationViT``, are not ported yet (``ROADMAP.md``, Queue 1,
+item 8).
 """
 
 from __future__ import annotations
@@ -74,7 +75,7 @@ HOPTIMUS_VIT_G = ViTConfig(1536, 40, 24, patch_size=14, mlp_ratio=4096 / 1536,
                            mlp_type="swiglu", layer_scale=True, native_grid=16,
                            reg_tokens=4, no_embed_class=True)
 
-_UNPORTED = "is not yet ported to torch (ROADMAP.md, queue 3)"
+_UNPORTED = "is not yet ported to torch (ROADMAP.md, Queue 1, item 8)"
 
 
 def _refuse_unported(cfg: ViTConfig) -> None:
@@ -147,7 +148,8 @@ class Attention(nn.Module):
         if self.use_rel_pos:
             rh = _get_rel_pos(ah, ah, self.rel_pos_h).to(qkv.dtype)
             rw = _get_rel_pos(aw, aw, self.rel_pos_w).to(qkv.dtype)
-        out = window_attention(qkv.contiguous(), self.num_heads, ws, self.scale, rh, rw)
+        out = window_attention(qkv.contiguous(), self.num_heads, ws, self.scale, rh, rw,
+                               valid=(h, w))
         return self.proj(out[:, :h, :w])
 
 

@@ -8,9 +8,14 @@ version of the same contract. ``window_attention`` dispatches on where the
 qkv grid lies: a CUDA tensor goes to a kernel (or raises), a CPU tensor to
 the plain version. Nothing else.
 
-* float32: every product an f32 FMA (``window_attention_kernel``); bound by
-  operations (403 µs at CellViT-SAM-H's windowed shape, B=32, at an H100
-  SXM's 67 TFLOP/s of f32 FMAs).
+* float32: QKᵀ, PV and the rel-pos dot products as 3×TF32 tensor-core
+  products, ``mma.sync`` m16n8k8 tf32 with f32 accumulators
+  (``window_attention_kernel_tf32``): each operand split into a TF32 hi and
+  lo part, each product ``lo·hi + hi·lo + hi·hi`` (about 22 bits), held to
+  the f32 bar. Single-pass TF32 is not used: parity runs with TF32 off. It
+  computes only the real rows (``valid``); bound by bytes at CellViT-SAM-H's
+  windowed shape, B=32, with valid=(16, 16) (102 µs: 341 MB at an H100
+  SXM's 3.35 TB/s; 53 µs of operations at 494.7 TFLOP/s of dense TF32).
 * bfloat16: QKᵀ, PV and the rel-pos dot products as bf16 tensor-core
   products, ``mma.sync`` m16n8k16 with f32 accumulators
   (``window_attention_kernel_mma``); bound by bytes (76.7 µs at the same
@@ -33,6 +38,14 @@ head), with q, k, v the head's slices of the window's tokens (row-major):
 
 Pad tokens of a padded window carry the qkv bias and take part in the
 attention, as in SAM: nothing is masked.
+
+Real rows: ``valid=(h, w)`` is the real token extent of a padded grid (the
+model crops the output to ``[:h, :w]``). Each output row depends only on its
+own q and on all the keys, pad keys included, so the float32 kernel computes
+only the rows of real tokens and leaves the others unwritten
+(``torch.empty``); every real row is what it is at full rows. The plain
+version returns NaN there; the bfloat16 kernel computes every row. It
+defaults to the whole grid; global attention takes only the whole grid.
 """
 
 from __future__ import annotations
@@ -47,8 +60,9 @@ from .cuda_build import load_library
 _SOURCE = "window_attention.cu"
 _HEAD_DIMS = (32, 64, 80, 128)  # the kernel's instantiations
 _SMEM_MAX = 227 * 1024
-_TILE = 64  # keys per shared-memory tile; query rows per CTA of the f32 kernel
-_MMA_ROWS = 128  # query rows per CTA of the bf16 kernel: 8 warps of one m16 tile
+# (query rows per CTA, keys per staged tile): bf16 8 warps of one m16 tile
+# and 64 keys; float32 4 warps and 32 keys (see the .cu).
+_CTA = {torch.bfloat16: (128, 64), torch.float32: (64, 32)}
 
 
 def _geometry(shape: torch.Size, num_heads: int, window: int):
@@ -68,6 +82,19 @@ def _rounded_scale(scale: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(scale, dtype=dtype))
 
 
+def _valid_extent(shape: torch.Size, window: int, valid) -> tuple[int, int]:
+    """The checked (h, w) of ``valid``; the whole grid when it is None."""
+    _, hp, wp, _ = shape
+    if valid is None:
+        return hp, wp
+    h, w = (int(v) for v in valid)
+    if not (0 < h <= hp and 0 < w <= wp):
+        raise ValueError(f"window_attention: valid {(h, w)} is not within the {hp}x{wp} grid")
+    if not window and (h, w) != (hp, wp):
+        raise ValueError("window_attention: global attention takes only the whole grid as valid")
+    return h, w
+
+
 def window_attention_reference(
     qkv: torch.Tensor,
     num_heads: int,
@@ -75,11 +102,14 @@ def window_attention_reference(
     scale: float,
     rh: torch.Tensor | None = None,
     rw: torch.Tensor | None = None,
+    valid: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Plain torch K2: (B, HP, WP, 3*dim) -> (B, HP, WP, dim), unfused,
-    with the kernel's roundings (see the module docstring)."""
+    with the kernel's roundings (see the module docstring). Rows outside
+    ``valid`` are NaN."""
     b, hp, wp, _ = qkv.shape
     dim, hd, ah, aw, gh, gw = _geometry(qkv.shape, num_heads, window)
+    h, w = _valid_extent(qkv.shape, window, valid)
     n = ah * aw
     dt = qkv.dtype
     with torch.autocast(qkv.device.type, enabled=False):
@@ -99,7 +129,11 @@ def window_attention_reference(
         p = torch.softmax(s, dim=-1).to(v.dtype)
         o = torch.matmul(p.float(), v.float()).to(dt)  # (B*nw, heads, n, hd)
         o = o.reshape(b, gh, gw, num_heads, ah, aw, hd).permute(0, 1, 4, 2, 5, 3, 6)
-        return o.reshape(b, hp, wp, dim)
+        o = o.reshape(b, hp, wp, dim)
+        if (h, w) != (hp, wp):
+            o[:, h:] = float("nan")
+            o[:, :, w:] = float("nan")
+        return o
 
 
 @functools.lru_cache(maxsize=None)
@@ -116,23 +150,29 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i32, i32, i32, i32, ctypes.c_float, ptr,  # ah, aw, gh, gw, scale, stream
     ]
     lib.wsi_window_attention.restype = i32
+    if hasattr(lib, "wsi_window_attention_rows"):  # builds before it have only the above
+        lib.wsi_window_attention_rows.argtypes = [
+            *lib.wsi_window_attention.argtypes[:15], i32, i32, ctypes.c_float, ptr
+        ]  # ..., gw, h, w, scale, stream
+        lib.wsi_window_attention_rows.restype = i32
     lib.wsi_cuda_error_string.argtypes = [i32]
     lib.wsi_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def shared_memory_bytes(hd: int, ah: int, aw: int, with_rel: bool, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one CTA: the K and V tiles plus each query
-    row's ah + aw rel values in float32. float32: 64 query rows, tiles of
-    rows of hd, rel rows of an odd stride. bfloat16: 128 query rows, two
-    stages of K and V tiles (q is staged in the second) in rows of hd + 8,
-    and rel rows of a stride that is 8 mod 32 (``rel_stride`` in the .cu)."""
+    """Dynamic shared memory of one CTA: two stages of K and V tiles and
+    the CTA's q rows, and each query row's ah + aw rel values in float32,
+    rows of a stride that is 8 mod 32 (``rel_stride`` in the .cu).
+    bfloat16: 128 query rows, tiles of 64 keys in rows of hd + 8, q staged in
+    the second stage. float32: 64 query rows, tiles of 32 keys in rows of
+    hd + 4, q in rows of its own."""
+    rows, keys = _CTA[dtype]
     if dtype == torch.bfloat16:
-        rows, tiles = _MMA_ROWS, 2 * 2 * _TILE * (hd + 8) * 2
-        stride = ah + aw + ((8 - (ah + aw)) & 31)
+        tiles = 2 * 2 * keys * (hd + 8) * 2
     else:
-        rows, tiles = _TILE, 2 * _TILE * hd * 4
-        stride = (ah + aw) | 1
+        tiles = (2 * 2 * keys + rows) * (hd + 4) * 4
+    stride = ah + aw + ((8 - (ah + aw)) & 31)
     return tiles + (rows * stride * 4 if with_rel else 0)
 
 
@@ -143,6 +183,7 @@ def window_attention(
     scale: float,
     rh: torch.Tensor | None = None,
     rw: torch.Tensor | None = None,
+    valid: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Fused multi-head (windowed) attention over a qkv feature grid.
 
@@ -150,11 +191,13 @@ def window_attention(
     ``num_heads`` heads. HP and WP are multiples of ``window``; ``window ==
     0`` means global attention over the whole grid. rh / rw: optional
     expanded rel-pos tables (ah, ah, hd) / (aw, aw, hd) in qkv's dtype.
+    valid: the real (h, w) of a padded grid; rows outside ``[:h, :w]`` of
+    the result are unspecified (see the module docstring).
     Returns (B, HP, WP, dim) in qkv's dtype. A CUDA grid runs the kernel; a
     CPU grid runs ``window_attention_reference``. ``window_attention.launches``
     counts the kernel's launches."""
     if qkv.device.type == "cpu":
-        return window_attention_reference(qkv, num_heads, window, scale, rh, rw)
+        return window_attention_reference(qkv, num_heads, window, scale, rh, rw, valid)
     if qkv.device.type != "cuda":
         raise ValueError(f"window_attention: unsupported device {qkv.device}")
     if qkv.dim() != 4:
@@ -165,6 +208,7 @@ def window_attention(
         raise ValueError("window_attention: qkv must be contiguous and 16-byte aligned")
     b, hp, wp, _ = qkv.shape
     dim, hd, ah, aw, gh, gw = _geometry(qkv.shape, num_heads, window)
+    valid = _valid_extent(qkv.shape, window, valid)
     if hd not in _HEAD_DIMS:
         raise ValueError(f"window_attention: head dim {hd} not in {_HEAD_DIMS}")
     if (rh is None) != (rw is None):
@@ -180,32 +224,36 @@ def window_attention(
                 raise ValueError(f"window_attention: {name} must be contiguous and 16-byte aligned")
     if shared_memory_bytes(hd, ah, aw, rh is not None, qkv.dtype) > _SMEM_MAX:
         raise ValueError(f"window_attention: a {ah}x{aw} window does not fit shared memory")
-    n_tiles = -(-(ah * aw) // _TILE)
-    if num_heads > 65535 or n_tiles > 65535 or ah * aw >= 2**21:
-        raise ValueError("window_attention: heads or query tiles exceed the grid's 65535,"
-                         " or a window holds 2**21 tokens or more")
+    if ah * aw >= 2**21:
+        raise ValueError("window_attention: a window holds 2**21 tokens or more")
     out = torch.empty((b, hp, wp, dim), dtype=qkv.dtype, device=qkv.device)
     if out.numel() == 0:
         return out
-    launch(_kernel(), qkv, out, num_heads, window, scale, rh, rw)
+    launch(_kernel(), qkv, out, num_heads, window, scale, rh, rw, valid)
     window_attention.launches += 1
     return out
 
 
-def launch(lib, qkv, out, num_heads, window, scale, rh=None, rw=None) -> None:
-    """One launch of ``lib``'s ``wsi_window_attention`` (``bind`` declared it)
-    on inputs that ``window_attention`` has checked. Counts nothing."""
+def launch(lib, qkv, out, num_heads, window, scale, rh=None, rw=None, valid=None) -> None:
+    """One launch of ``lib``'s ``wsi_window_attention_rows`` (``bind``
+    declared it) on inputs that ``window_attention`` has checked; with
+    ``valid`` None, of ``wsi_window_attention`` (every row; every build has
+    it). Counts nothing."""
     b, hp, wp, _ = qkv.shape
     dim, hd, ah, aw, gh, gw = _geometry(qkv.shape, num_heads, window)
+    args = [
+        qkv.data_ptr(), out.data_ptr(),
+        rh.data_ptr() if rh is not None else None,
+        rw.data_ptr() if rw is not None else None,
+        int(qkv.dtype == torch.bfloat16), hd,
+        b, hp, wp, dim, num_heads, ah, aw, gh, gw,
+    ]
+    tail = [_rounded_scale(scale, qkv.dtype), torch.cuda.current_stream().cuda_stream]
     with torch.cuda.device(qkv.device):
-        err = lib.wsi_window_attention(
-            qkv.data_ptr(), out.data_ptr(),
-            rh.data_ptr() if rh is not None else None,
-            rw.data_ptr() if rw is not None else None,
-            int(qkv.dtype == torch.bfloat16), hd,
-            b, hp, wp, dim, num_heads, ah, aw, gh, gw,
-            _rounded_scale(scale, qkv.dtype), torch.cuda.current_stream().cuda_stream,
-        )
+        if valid is None:
+            err = lib.wsi_window_attention(*args, *tail)
+        else:
+            err = lib.wsi_window_attention_rows(*args, *valid, *tail)
     if err != 0:
         raise RuntimeError(
             f"window_attention launch failed: {lib.wsi_cuda_error_string(err).decode()}"

@@ -5,16 +5,17 @@
 Each argument names one build of a ``window_attention.cu``: this checkout's
 (an empty PATH) or another version of it, e.g. a parent commit's file
 unpacked by ``git archive``. With no argument, this checkout's alone. Every
-build exports the same ``wsi_window_attention``; the wrapper's checks are
-not run.
+build exports ``wsi_window_attention`` (every row); a shape with real rows
+(``valid``) goes to ``wsi_window_attention_rows`` in the builds that have
+it and to every row in older ones. The wrapper's checks are not run.
 
 For each shape below, every build is held against the plain version
-(``window_attention_reference``, at ``K2_TOL``) and timed with CUDA events
-over 20 launches, in turns (first to last, then last to first; the mean of
-the two), so that builds compare within one call on one card. Prints the
-card's name and power limit, each build's registers and spills, a line per
-shape and build, and last one JSON object; exits 1 if a build fails a
-check. Launches here are not counted in ``window_attention.launches``.
+(``window_attention_reference``, at ``K2_TOL``, on the real rows) and timed
+with CUDA events over 20 launches, in turns (first to last, then last to
+first; the mean of the two), so that builds compare within one call on one
+card. Prints the card's name and power limit, each build's registers and
+spills, a line per shape and build, and last one JSON object; exits 1 if a
+build fails a check. Launches here are not counted in ``window_attention.launches``.
 """
 
 from __future__ import annotations
@@ -32,16 +33,21 @@ import torch
 from . import cuda_build
 from .flash_attn import _SOURCE, bind, launch, window_attention_reference
 
-# (name, qkv grid HP x WP, dim, heads, window, rel-pos, B, dtype): the cell
-# path's K2 shapes at B=32 (SAM-H windowed with and without rel-pos, to
-# price the rel-pos work), SAM-B's global block at 1024 px, and f32 once.
+# (name, qkv grid HP x WP, dim, heads, window, rel-pos, B, dtype, valid):
+# the cell path's K2 shapes at B=32 in both dtypes (SAM-H windowed with its
+# real 16x16 extent, as the model launches it, and at every row; without
+# rel-pos in bf16, to price the rel-pos work), and SAM-B's global block at
+# 1024 px.
 SHAPES = (
-    ("sam_h_windowed", (28, 28), 1280, 16, 14, True, 32, torch.bfloat16),
-    ("sam_h_windowed_norel", (28, 28), 1280, 16, 14, False, 32, torch.bfloat16),
-    ("sam_h_global", (16, 16), 1280, 16, 0, True, 32, torch.bfloat16),
-    ("vit_256", (1, 257), 384, 6, 0, False, 32, torch.bfloat16),
-    ("sam_b_1024_global", (64, 64), 768, 12, 0, True, 1, torch.bfloat16),
-    ("sam_h_windowed", (28, 28), 1280, 16, 14, True, 32, torch.float32),
+    ("sam_h_windowed", (28, 28), 1280, 16, 14, True, 32, torch.bfloat16, None),
+    ("sam_h_windowed_norel", (28, 28), 1280, 16, 14, False, 32, torch.bfloat16, None),
+    ("sam_h_global", (16, 16), 1280, 16, 0, True, 32, torch.bfloat16, None),
+    ("vit_256", (1, 257), 384, 6, 0, False, 32, torch.bfloat16, None),
+    ("sam_b_1024_global", (64, 64), 768, 12, 0, True, 1, torch.bfloat16, None),
+    ("sam_h_windowed_real", (28, 28), 1280, 16, 14, True, 32, torch.float32, (16, 16)),
+    ("sam_h_windowed", (28, 28), 1280, 16, 14, True, 32, torch.float32, None),
+    ("sam_h_global", (16, 16), 1280, 16, 0, True, 32, torch.float32, None),
+    ("vit_256", (1, 257), 384, 6, 0, False, 32, torch.float32, None),
 )
 K2_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (5e-2, 5e-2)}
 REPS = 20
@@ -63,8 +69,7 @@ def build(variants: dict[str, Path]) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
         for line in cuda_build.ptxas_summary(log):
-            if "mma" in line:
-                print(f"  {name}: {line}")
+            print(f"  {name}: {line}")
         libs[name] = bind(ctypes.CDLL(str(target)))
     return libs
 
@@ -115,20 +120,24 @@ def main(argv: list[str]) -> int:
     variants = parse(argv)
     libs = build(variants)
     rng = np.random.default_rng(0)
-    rows, failed = [], []
-    for name, shape, dim, heads, window, rel, b, dt in SHAPES:
+    results, failed = [], []
+    for name, shape, dim, heads, window, rel, b, dt, valid in SHAPES:
         qkv, rh, rw = inputs(shape, dim, heads, window, rel, dt, b, rng)
         scale = (dim // heads) ** -0.5
-        want = window_attention_reference(qkv, heads, window, scale, rh, rw).float()
+        h, w = valid or shape
+        want = window_attention_reference(qkv, heads, window, scale, rh, rw)[:, :h, :w].float()
         atol, rtol = K2_TOL[dt]
-        outs = {v: torch.empty(want.shape, dtype=dt, device="cuda") for v in libs}
-        calls = {v: (lambda lib=lib, o=outs[v]: launch(lib, qkv, o, heads, window, scale, rh, rw))
+        outs = {v: torch.empty((b, *shape, dim), dtype=dt, device="cuda") for v in libs}
+        rows = {v: valid if hasattr(lib, "wsi_window_attention_rows") else None
+                for v, lib in libs.items()}
+        calls = {v: (lambda lib=lib, o=outs[v], r=rows[v]:
+                     launch(lib, qkv, o, heads, window, scale, rh, rw, r))
                  for v, lib in libs.items()}
         errs = {}
         for v, call in calls.items():
             call()
             torch.cuda.synchronize()
-            diff = (outs[v].float() - want).abs()
+            diff = (outs[v][:, :h, :w].float() - want).abs()
             errs[v] = float(diff.max())
             if float((diff - atol - rtol * want.abs()).max()) > 0:
                 failed.append(f"{v} {name} {str(dt)[6:]}")
@@ -138,16 +147,17 @@ def main(argv: list[str]) -> int:
             times[v].append(cuda_ms(calls[v]))
         for v in order:
             ms = sum(times[v]) / len(times[v])
-            rows.append({"build": v, "shape": name, "b": b, "dtype": str(dt)[6:], "ms": ms,
-                         "ms_each": times[v], "max_abs_err": errs[v]})
-            print(f"  {name} B={b} {str(dt)[6:]} {v}: {ms * 1e3:.1f} us"
+            span = "real rows" if rows[v] else "every row"
+            results.append({"build": v, "shape": name, "b": b, "dtype": str(dt)[6:], "ms": ms,
+                            "rows": span, "ms_each": times[v], "max_abs_err": errs[v]})
+            print(f"  {name} B={b} {str(dt)[6:]} {v} ({span}): {ms * 1e3:.1f} us"
                   f" ({', '.join(f'{t * 1e3:.1f}' for t in times[v])}), max |d| {errs[v]:.3g}")
         del qkv, rh, rw, want, outs
         torch.cuda.empty_cache()
     for f in failed:
         print(f"  FAIL: {f} exceeds K2_TOL", file=sys.stderr)
     print(json.dumps({"card": card, "builds": {v: str(p) for v, p in variants.items()},
-                      "rows": rows}))
+                      "rows": results}))
     return 1 if failed else 0
 
 
