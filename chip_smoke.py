@@ -15,8 +15,11 @@ failure exits non-zero and prints no result line:
   (b) build every kernel from the checkout's sources (one nvcc per source),
       printing each kernel's registers and spills as ptxas reports them;
   (c) K1 (fused uint8 -> PIL resize -> normalize) vs its plain version on the
-      card, f32 and bf16, at B=256 350->224, B=256 175->224 and B=3 97->64;
-      K1's time over >= 20 launches (CUDA events) beside its bound;
+      card, f32 and bf16, bit for bit, at B=256 350->224, 175->224 and
+      350->299, B=3 97->64, and on x[1:] of a B=257 350 px batch (its first
+      image not 16-byte aligned); K1's time over 50 launches (CUDA events) at
+      B=256 350->224, 175->224 and 350->299 in both dtypes, with the bytes
+      per second reached and the share of its bound;
   (d) ClassifierEngine in parity (fp32, TF32 off, exact resize) and in
       mixed_precision (bf16, K1): 20 batches of B=256 through put -> dispatch
       with the two-deep window of run_inference; patches/s, peak memory, and
@@ -68,6 +71,9 @@ CELL_MODELS = (("CellViT-SAM-H-x40", 32), ("CellViT-256-x40", 12))  # (model, K2
 CELL_BATCHES = 8
 CELL_BATCH = 32
 CELL_GRID = 16  # the cell canvas is a CELL_GRID x CELL_GRID grid of patches
+# K1's timed resizes at B=BATCH: the main path's 350 -> 224 first, then
+# upsampling 175 -> 224 and the odd output width of 350 -> 299.
+K1_TIMED = ((350, 224), (175, 224), (350, 299))
 
 # Data-sheet rates by card name: (bytes/s, fp32 FLOP/s outside the tensor
 # cores, dense bf16 tensor-core FLOP/s, dense TF32 tensor-core FLOP/s).
@@ -292,8 +298,10 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     print(f"(c) K1 vs its plain version ({MODEL} mean/std)")
     max_abs_err = 0.0
-    for b, h, oh in ((BATCH, 350, 224), (BATCH, 175, 224), (3, 97, 64)):
-        x = torch.from_numpy(rng.integers(0, 256, (b, h, h, 3), dtype=np.uint8)).to(dev)
+    for b, h, oh, skip in ((BATCH, 350, 224, 0), (BATCH, 175, 224, 0), (BATCH, 350, 299, 0),
+                           (3, 97, 64, 0), (BATCH + 1, 350, 224, 1)):
+        # skip=1: x[1:] of a contiguous batch, whose first image is not 16-byte aligned
+        x = torch.from_numpy(rng.integers(0, 256, (b, h, h, 3), dtype=np.uint8)).to(dev)[skip:]
         for dt in (torch.float32, torch.bfloat16):
             got = fused_preprocess(x, (oh, oh), scale, shift, dt)
             want = fused_preprocess_reference(x, (oh, oh), scale, shift, dt)
@@ -303,23 +311,30 @@ def main() -> int:
             share = float((got != want).float().mean())
             max_abs_err = max(max_abs_err, float(diff.max()))
             check(
-                got.shape == (b, oh, oh, 3) and levels <= 1.0 + 1e-3 and share <= 1e-3,
-                f"B={b} {h}->{oh} {str(dt)[6:]}: max diff {levels:.3g} uint8 levels (<= 1),"
-                f" share differing {share:.3g} (<= 1e-3)",
+                got.shape == (b - skip, oh, oh, 3) and torch.equal(got, want),
+                f"B={b - skip} {h}->{oh} {str(dt)[6:]}{' from x[1:]' if skip else ''}:"
+                f" max diff {levels:.3g} uint8 levels, share differing {share:.3g}"
+                " (bit-identical: 0)",
             )
-    x = torch.from_numpy(rng.integers(0, 256, (BATCH, 350, 350, 3), dtype=np.uint8)).to(dev)
-    timing = {}
-    for dt, nb in ((torch.bfloat16, 2), (torch.float32, 4)):
-        ms = _cuda_ms(lambda: fused_preprocess(x, (224, 224), scale, shift, dt), reps=50)
-        plain_ms = _cuda_ms(
-            lambda: fused_preprocess_reference(x, (224, 224), scale, shift, dt), reps=5, warmup=1
-        )
-        bound_ms, bound_by = k1_bound(BATCH, 350, 350, 224, 224, nb, rates)
-        timing[dt] = (ms, plain_ms, bound_ms, bound_by)
-        print(f"    K1 B={BATCH} 350->224 {str(dt)[6:]}: {ms * 1e3:.1f} us/launch over 50,"
-              f" bound {bound_ms * 1e3:.1f} us ({bound_by}, {bound_ms / ms:.1%} of it),"
-              f" plain version {plain_ms:.3f} ms; no library call computes it")
-    del x
+    del x, got, want, diff  # (d) reads the peak memory of its own tensors
+    k1_shapes = []
+    for h, oh in K1_TIMED:
+        x = torch.from_numpy(rng.integers(0, 256, (BATCH, h, h, 3), dtype=np.uint8)).to(dev)
+        for dt, nb in ((torch.bfloat16, 2), (torch.float32, 4)):
+            ms = _cuda_ms(lambda: fused_preprocess(x, (oh, oh), scale, shift, dt), reps=50)
+            plain_ms = _cuda_ms(
+                lambda: fused_preprocess_reference(x, (oh, oh), scale, shift, dt), reps=5, warmup=1
+            )
+            bound_ms, bound_by = k1_bound(BATCH, h, h, oh, oh, nb, rates)
+            nbytes = BATCH * (h * h * 3 + oh * oh * 3 * nb)
+            k1_shapes.append({"shape": f"{h}->{oh}", "b": BATCH, "dtype": str(dt)[6:], "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                              "gb_s": nbytes / ms / 1e6})
+            print(f"    K1 B={BATCH} {h}->{oh} {str(dt)[6:]}: {ms * 1e3:.1f} us/launch over 50,"
+                  f" {nbytes / ms / 1e6:.0f} GB/s, bound {bound_ms * 1e3:.1f} us ({bound_by},"
+                  f" {bound_ms / ms:.1%} of it), plain version {plain_ms:.3f} ms;"
+                  " no library call computes it")
+        del x
 
     # (d) ------------------------------------------------------------------
     tmp = tempfile.TemporaryDirectory()
@@ -522,7 +537,9 @@ def main() -> int:
     if check.failed:
         print(f"chip_smoke: {len(check.failed)} check(s) failed", file=sys.stderr)
         return 1
-    ms, plain_ms, bound_ms, bound_by = timing[torch.bfloat16]
+    # K1's headline: the main path's B=256 350->224 in bf16; every shape and
+    # dtype is under "shapes".
+    k1_main = k1_shapes[0]
     # K2's headline shape: SAM-H's windowed blocks in bf16, 28 of every 32
     # launches on the SAM-H path; every shape and dtype is under "shapes".
     k2_main = next(s for s in k2["shapes"]
@@ -536,11 +553,13 @@ def main() -> int:
         "replaces": "wsinsight_tpu/ops/pallas_preprocess.py:38",
         "launches": launches["fused_preprocess"],
         "max_abs_err": max_abs_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "ms": k1_main["ms"],
+        "plain_ms": k1_main["plain_ms"],
+        "bound_ms": k1_main["bound_ms"],
+        "bound_by": k1_main["bound_by"],
         "library_ms": None,
+        "at": f"B={BATCH} {k1_main['shape']} {k1_main['dtype']}",
+        "shapes": k1_shapes,
     }, {
         "name": "window_attention",
         "route": "cuda",

@@ -12,8 +12,16 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from wsinsight_tpu_torch.ops.fused_preprocess import (  # noqa: E402
+    _SMEM_MAX as K1_SMEM_MAX,
+    _BAND_ROWS,
+    _TAPS,
+    _WEIGHT_SUM_MAX,
     _band,
-    _tile_plan,
+    _band_pass,
+    _columns,
+    _plan,
+    _schedule,
+    _smem,
     fused_preprocess,
     fused_preprocess_reference,
 )
@@ -42,27 +50,208 @@ def _batch(b, h, seed=0):
     return rng.integers(0, 256, size=(b, h, h, 3), dtype=np.uint8)
 
 
+# K1's resizes: the zoo's (350 -> 224, 350 -> 299, 175 -> 224, and the
+# identities 224, 100, 96), an odd downscale, and bands of 10 and 8 taps.
+K1_SHAPES = [(350, 224), (350, 299), (175, 224), (224, 224), (100, 100), (96, 96),
+             (97, 64), (1024, 224), (350, 96)]
+
+
+def _bands(plan, oh):
+    """The kernel's CTAs along the rows: ceil(oh / band_rows) of them, CTA i
+    writing rows [i * band_rows, min((i + 1) * band_rows, oh))."""
+    r = plan.band_rows
+    return [(i * r, min((i + 1) * r, oh)) for i in range(-(-oh // r))]
+
+
+def _vertical(h, oh):
+    start, ntaps, _ = _band(h, oh)
+    return start, start + np.maximum(ntaps, 1)
+
+
 @pytest.mark.parametrize("in_size,out_size", [(350, 224), (175, 224), (97, 64)])
 def test_bands_cover_pil_weights(in_size, out_size):
     """The kernel's (start, ntaps, weights) bands are PIL's matrix, and each
-    tile's staged rows fit the rows the launcher sized shared memory for."""
+    CTA's band of output rows stages the input rows its taps need."""
     start, ntaps, w = _band(in_size, out_size)
     mat = np.zeros((out_size, in_size), np.float32)
     for o in range(out_size):
         mat[o, start[o] : start[o] + ntaps[o]] = w[o, : ntaps[o]]
     np.testing.assert_array_equal(mat, _pil_bilinear_weights(in_size, out_size))
-    tile, rows = _tile_plan(in_size, in_size, out_size, out_size)
-    for r in range(0, out_size, tile):
-        assert (start + ntaps)[r : r + tile].max() - start[r : r + tile].min() <= rows
-    assert 16 + rows * 3 * (in_size + out_size) <= 227 * 1024
+    plan = _plan(in_size, in_size, out_size, out_size)
+    end = start + ntaps
+    for r0, r1 in _bands(plan, out_size):
+        assert start[r0] == start[r0:r1].min() and end[r1 - 1] == end[r0:r1].max()
+    assert plan.smem <= 227 * 1024
+
+
+@pytest.mark.parametrize("h,oh", K1_SHAPES)
+def test_plan_bands_partition_output_rows(h, oh):
+    """Every output row belongs to exactly one CTA's band, and no band is
+    empty; bands are evened out (none longer than _BAND_ROWS, the last at
+    least as long as the others less one per band); the CTA is the output
+    width rounded up to a warp."""
+    plan = _plan(h, h, oh, oh)
+    bands = _bands(plan, oh)
+    rows = np.concatenate([np.arange(r0, r1) for r0, r1 in bands])
+    np.testing.assert_array_equal(rows, np.arange(oh))
+    sizes = [r1 - r0 for r0, r1 in bands]
+    assert min(sizes) > 0 and max(sizes) == plan.band_rows <= _BAND_ROWS
+    assert sizes[-1] > plan.band_rows - len(bands)
+    assert plan.threads == min(-(-oh // 32) * 32, 1024)
+
+
+@pytest.mark.parametrize("h,oh", K1_SHAPES)
+def test_plan_staged_rows_cover_taps(h, oh):
+    """A band stages input rows [start of its first row, end of its last):
+    every tap of its rows lies in what was staged (the kernel skips padded
+    vertical taps; clamped to the row's last real one they would too), a
+    padded horizontal tap reads the last column, as the plain version clamps
+    it, and the chunks stage each of those rows once."""
+    plan = _plan(h, h, oh, oh)
+    start, end = _vertical(h, oh)
+    taps = plan.taps or _band(h, oh)[2].shape[1]
+    for r0, r1 in _bands(plan, oh):
+        lo, hi = start[r0], end[r1 - 1]
+        rows = np.minimum(start[r0:r1, None] + np.arange(taps), end[r0:r1, None] - 1)
+        assert rows.min() >= lo and rows.max() < hi <= h
+        steps = _schedule(start, end, r0, r1, plan.chunk_rows)
+        staged = np.concatenate([np.arange(first, prod) for first, prod, _, _ in steps])
+        np.testing.assert_array_equal(staged, np.arange(lo, hi))
+    hstart = _band(h, oh)[0]
+    cols = np.minimum(hstart[:, None] + np.arange(plan.taps or 1), h - 1)
+    assert cols.min() >= 0 and cols.max() < h
+
+
+@pytest.mark.parametrize("h,oh", K1_SHAPES)
+def test_plan_ring_holds_vertical_taps(h, oh):
+    """Walk each band as the kernel does: write each chunk's horizontal rows
+    into ring slot row % ring_rows, then read every tap of the output rows
+    written after that chunk. Each tap finds its own row in its slot, and
+    each output row is written once."""
+    plan = _plan(h, h, oh, oh)
+    start, end = _vertical(h, oh)
+    taps = plan.taps or _band(h, oh)[2].shape[1]
+    assert plan.ring_rows & (plan.ring_rows - 1) == 0
+    for r0, r1 in _bands(plan, oh):
+        ring = np.full(plan.ring_rows, -1)
+        written = []
+        for first, prod, e0, e1 in _schedule(start, end, r0, r1, plan.chunk_rows):
+            for row in range(first, prod):
+                ring[row % plan.ring_rows] = row
+            for r in range(e0, e1):
+                rows = np.minimum(start[r] + np.arange(taps), end[r] - 1)
+                np.testing.assert_array_equal(ring[rows % plan.ring_rows], rows)
+                assert end[r] <= prod
+            written += range(e0, e1)
+        assert written == list(range(r0, r1))
+
+
+@pytest.mark.parametrize("h,oh", K1_SHAPES)
+def test_plan_shared_memory_fits(h, oh):
+    """Two staged chunks, the ring and the vertical table fit a CTA's share
+    of the SM; the zoo's resizes stay under 48 KB (no opt-in)."""
+    plan = _plan(h, h, oh, oh)
+    taps = plan.taps or _band(h, oh)[2].shape[1]
+    assert plan.smem == _smem(h, oh, plan.band_rows, plan.chunk_rows, plan.ring_rows, taps)
+    assert plan.smem <= K1_SMEM_MAX
+    if h <= 350:
+        assert plan.smem <= 48 * 1024
+    assert plan.taps == next(t for t in (*_TAPS, 0) if t >= _band(h, oh)[2].shape[1] or t == 0)
+
+
+@pytest.mark.parametrize("h,oh", K1_SHAPES)
+def test_column_order_groups_tap_counts(h, oh):
+    """The horizontal pass's threads take every output column once, by tap
+    count (most first, stably), so a warp runs as many taps as its columns
+    need: at 350 -> 224 one warp of seven runs 4 taps and six run 3."""
+    cols = _columns(h, oh)
+    np.testing.assert_array_equal(np.sort(cols), np.arange(oh))
+    ntaps = _band(h, oh)[1][cols]
+    assert (np.diff(ntaps) <= 0).all()
+    warps = [int(ntaps[k : k + 32].max()) for k in range(0, oh, 32)]
+    if (h, oh) == (350, 224):
+        assert warps == [4, 3, 3, 3, 3, 3, 3]
+
+
+def _copy_blocks(a, n, lo, hi):
+    """fused_preprocess.cu's ``stage``: the 16-byte blocks covering bytes
+    [a, a + n), and which of them go by cp.async (those inside [lo, hi))."""
+    g0 = a // 16 * 16
+    blocks = g0 + 16 * np.arange((a + n - g0 + 15) // 16)
+    return blocks, (blocks >= lo) & (blocks + 16 <= hi)
+
+
+@pytest.mark.parametrize("h,oh", K1_SHAPES)
+def test_plan_copy_blocks_inside_image(h, oh):
+    """Every 16-byte cp.async block lies inside its image's bytes, at any
+    start address of the batch (x[1:] of a batch starts 350*350*3 bytes on,
+    which is not 16-aligned); the blocks that do not (copied byte by byte,
+    only the span's own bytes) are the span's first or last and touch the
+    image's edge; the blocks fit the chunk's slot in shared memory."""
+    plan = _plan(h, h, oh, oh)
+    start, end = _vertical(h, oh)
+    row_bytes, img_bytes = h * 3, h * h * 3
+    slot = (plan.chunk_rows * row_bytes + 15) // 16 * 16 + 32
+    for base in (4096, 4096 + img_bytes, 4097, 4111):
+        for b in range(3):
+            lo = base + b * img_bytes
+            hi = lo + img_bytes
+            for r0, r1 in _bands(plan, oh):
+                for first, prod, _, _ in _schedule(start, end, r0, r1, plan.chunk_rows):
+                    a, n = lo + first * row_bytes, (prod - first) * row_bytes
+                    assert lo <= a and a + n <= hi
+                    blocks, cp = _copy_blocks(a, n, lo, hi)
+                    assert len(blocks) * 16 <= slot
+                    assert blocks[0] <= a and blocks[-1] + 16 >= a + n
+                    assert (blocks[cp] >= lo).all() and (blocks[cp] + 16 <= hi).all()
+                    for i in np.flatnonzero(~cp):
+                        assert i in (0, len(blocks) - 1)
+                        assert blocks[i] < lo or blocks[i] + 16 > hi
+
+
+@pytest.mark.parametrize("h,oh", K1_SHAPES)
+def test_band_weights_keep_each_pass_in_range(h, oh):
+    """The kernel leaves out the contract's clip to [0, 255]: with weights
+    >= 0 summing to <= _WEIGHT_SUM_MAX, a pass over uint8 values gives
+    0 <= y < 255.5, so floor(y + 0.5) is already in range. The plain pass on
+    all-255 and all-0 rows gives exactly 255 and 0."""
+    _, _, w = _band(h, oh)
+    assert (w >= 0).all() and w.sum(axis=1, dtype=np.float64).max() <= _WEIGHT_SUM_MAX
+    assert 255 * _WEIGHT_SUM_MAX + 1e-3 < 255.5
+    x = torch.full((1, h, h, 3), 255.0)
+    x[..., 1] = 0.0
+    band = tuple(torch.from_numpy(a) for a in _band(h, oh))
+    for dim in (1, 2):
+        y = _band_pass(x, band, dim)
+        assert (y[..., 0] == 255).all() and (y[..., 1] == 0).all()
+
+
+@pytest.mark.parametrize("h,oh", K1_SHAPES)
+def test_padded_taps_add_exact_zero(h, oh):
+    """The plain pass with each band padded by zero weights to every tap
+    template the kernel has (at least its own count) is bit-identical to the
+    unpadded pass, in both directions."""
+    rng = np.random.default_rng(h + oh)
+    x = torch.from_numpy(rng.integers(0, 256, (1, h, h, 3)).astype(np.float32))
+    start, ntaps, w = (torch.from_numpy(a) for a in _band(h, oh))
+    for dim in (1, 2):
+        want = _band_pass(x, (start, ntaps, w), dim)
+        for taps in (t for t in _TAPS if t >= w.shape[1]):
+            padded = torch.zeros((oh, taps), dtype=torch.float32)
+            padded[:, : w.shape[1]] = w
+            got = _band_pass(x, (start, ntaps, padded), dim)
+            assert torch.equal(got, want), (dim, taps)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("in_size,out_size,b", [(350, 224, 8), (175, 224, 8), (97, 64, 3)])
+@pytest.mark.parametrize("in_size,out_size", [(350, 224), (175, 224), (350, 299), (224, 224),
+                                              (96, 96), (97, 64), (1024, 224), (1024, 40)])
+@pytest.mark.parametrize("b", [1, 3, 8])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_matches_plain_version(cuda_device, in_size, out_size, b, dtype):
     """K1 on the card is bit-identical to its plain version (same operations
-    in the same order, no FMA contraction)."""
+    in the same order, no FMA contraction), at every tap template: 1, 2, 4,
+    16 and, at 1024 -> 40 (26 taps), the run-time count."""
     dt = getattr(torch, dtype)
     x = torch.from_numpy(_batch(b, in_size)).to(cuda_device)
     scale = 1.0 / (255.0 * np.asarray(STD, np.float32))
@@ -73,6 +262,39 @@ def test_kernel_matches_plain_version(cuda_device, in_size, out_size, b, dtype):
     assert fused_preprocess.launches == before + 1
     want = fused_preprocess_reference(x, (out_size, out_size), scale, shift, dt)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_size,out_size", [(350, 224), (350, 299)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_unaligned_batch(cuda_device, in_size, out_size, dtype):
+    """x[1:] of a contiguous batch is contiguous, but its first image starts
+    350*350*3 bytes on, not on a 16-byte boundary: still bit-identical."""
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(_batch(4, in_size)).to(cuda_device)[1:]
+    assert x.is_contiguous() and x.data_ptr() % 16
+    one, zero = np.full(3, 1 / 255, np.float32), np.zeros(3, np.float32)
+    got = fused_preprocess(x, (out_size, out_size), one, zero, dt)
+    want = fused_preprocess_reference(x, (out_size, out_size), one, zero, dt)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_size,out_size", [(350, 224), (175, 224), (350, 299), (97, 64)])
+def test_kernel_saturated_images(cuda_device, in_size, out_size):
+    """Images of 0 and 255 with sharp edges, where a pass's sum comes
+    closest to the ends of [0, 255]: still bit-identical."""
+    x = np.zeros((3, in_size, in_size, 3), np.uint8)
+    x[:, ::2] = 255
+    x[:, :, ::3] = 255
+    x[0] = 255
+    x = torch.from_numpy(x).to(cuda_device)
+    scale = 1.0 / (255.0 * np.asarray(STD, np.float32))
+    shift = -np.asarray(MEAN, np.float32) / np.asarray(STD, np.float32)
+    for dt in (torch.float32, torch.bfloat16):
+        got = fused_preprocess(x, (out_size, out_size), scale, shift, dt)
+        want = fused_preprocess_reference(x, (out_size, out_size), scale, shift, dt)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.cuda

@@ -53,8 +53,9 @@ K2_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (5e-2, 5e-2)}
 REPS = 20
 
 
-def build(variants: dict[str, Path]) -> dict:
-    """Compile every build at once (one nvcc each); returns bound libraries."""
+def build(variants: dict[str, Path], bind=bind) -> dict:
+    """Compile every build at once (one nvcc each); returns the libraries,
+    each passed through ``bind`` (K2's by default)."""
     out_dir = cuda_build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
