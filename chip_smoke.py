@@ -46,7 +46,21 @@ failure exits non-zero and prints no result line:
   (i) cell results: parity on the card vs the same engine on the CPU (2
       patches, maps <= 1e-3); bf16 vs parity canvases (max |d| of NP, HV, TP;
       share of pixels whose NP > 0.5 decision or TP argmax differs; NP
-      decisions agree on >= 99%); every map finite, TP rows summing to 1.
+      decisions agree on >= 99%); every map finite, TP rows summing to 1;
+  (j) slide-level classification through the port's host stack: a seeded
+      synthetic slide (24,576 x 24,576 px at 0.25 um/px, JPEG tiles of 256,
+      3 levels, H&E-coloured tissue blobs over about half of it, per-pixel
+      noise) written with the port's write_pyramidal_tiff; plan_slide with
+      the CLI's defaults for the model (thumbnail, segmentation, grid; host
+      seconds); PatchBatchSource.from_coords alone at B=256 (decode
+      patches/s at the CLI's default worker count and at one per core);
+      classify_slide with ClassifierEngine in parity and bf16 (K1) at B=256:
+      patches/s over the slide, peak memory, device-busy share (per-batch
+      step times from CUDA events over the wall time), the CSV through the
+      port's writer; checks: the CSV holds the plan's coords in order under
+      the model's header, rows finite and summing to 1, bf16 vs parity
+      <= 0.01, 8 of the slide's patches on the card vs the CPU <= 1e-3, K1
+      launches equal to the bf16 run's batches.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -55,6 +69,7 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -101,6 +116,14 @@ K2_SHAPES = (
 # |rel| >= 4 with these tables), which moves a score by as much; the output
 # is bf16 (one ulp is 2**-7 relative) and K2 rounds P before normalising it.
 K2_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (5e-2, 5e-2)}
+# (j)'s synthetic slide: a core biopsy's size at 40x (6.1 x 6.1 mm).
+SLIDE_PX = 24576
+SLIDE_MPP = 0.25
+SLIDE_TISSUE = 0.5  # share of the slide the blobs cover, on a coarse grid
+SLIDE_BACKGROUND = (236, 236, 236)  # neutral glass: no saturation
+# H&E tones: hematoxylin-rich purples, eosin pinks
+SLIDE_TONES = ((176, 98, 168), (214, 132, 186), (150, 80, 160), (226, 160, 200))
+SLIDE_NOISE = 17  # uniform in [-17, 17]: sigma 10.1 levels
 
 
 def _smi(query: str) -> str:
@@ -213,6 +236,83 @@ def sdpa_call(qkv, rh, rw, heads, window, scale):
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
 
 
+def write_synthetic_slide(path: str, side: int, rng: np.random.Generator) -> tuple[float, float]:
+    """Write (j)'s slide: tissue ellipses in H&E tones on neutral glass, with
+    per-pixel noise, built in strips of rows, as a 3-level JPEG pyramid.
+    Returns (tissue share on a coarse grid, seconds)."""
+    from wsinsight_tpu_torch.wsi.tiff import write_pyramidal_tiff
+
+    t0 = time.perf_counter()
+    coarse = np.linspace(0, side, 256, endpoint=False)
+    cy, cx = np.meshgrid(coarse, coarse, indexing="ij")
+    covered = np.zeros(cy.shape, bool)
+    blobs = []
+    while covered.mean() < SLIDE_TISSUE:  # add blobs until half is tissue
+        y, x = rng.uniform(0.15, 0.85, 2) * side
+        ry, rx = rng.uniform(0.08, 0.2, 2) * side
+        blobs.append((y, x, ry, rx, SLIDE_TONES[len(blobs) % len(SLIDE_TONES)]))
+        covered |= ((cy - y) / ry) ** 2 + ((cx - x) / rx) ** 2 <= 1
+    img = np.empty((side, side, 3), np.uint8)
+    xs = np.arange(side, dtype=np.float32)[None, :]
+    for y0 in range(0, side, 512):
+        ys = np.arange(y0, min(side, y0 + 512), dtype=np.float32)[:, None]
+        strip = np.empty((len(ys), side, 3), np.int16)
+        strip[:] = SLIDE_BACKGROUND
+        for y, x, ry, rx, tone in blobs:
+            strip[((ys - y) / ry) ** 2 + ((xs - x) / rx) ** 2 <= 1] = tone
+        strip += rng.integers(-SLIDE_NOISE, SLIDE_NOISE + 1, strip.shape, dtype=np.int16)
+        img[y0:y0 + len(ys)] = np.clip(strip, 0, 255)
+    write_pyramidal_tiff(path, img, tile=(256, 256), compression="jpeg", mpp=SLIDE_MPP,
+                         levels=3)
+    return float(covered.mean()), time.perf_counter() - t0
+
+
+class Window:
+    """Where classify_slide's window goes: the main thread's host seconds
+    waiting for decoded batches, in ``put`` (pin + enqueue of the copy) and
+    in ``dispatch`` (enqueue of the step), and the device time of each step
+    (CUDA events around it). Wraps the engine's put and dispatch."""
+
+    def __init__(self, engine):
+        import torch
+
+        self.host = {"decode_wait": 0.0, "put": 0.0, "dispatch": 0.0}
+        self.steps = []
+        put, dispatch = engine.put, engine.dispatch
+
+        def timed_put(images):
+            t0 = time.perf_counter()
+            out = put(images)
+            self.host["put"] += time.perf_counter() - t0
+            return out
+
+        def timed_dispatch(images):
+            t0 = time.perf_counter()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = dispatch(images)
+            end.record()
+            self.steps.append((start, end))
+            self.host["dispatch"] += time.perf_counter() - t0
+            return out
+
+        engine.put, engine.dispatch = timed_put, timed_dispatch
+
+    def batches(self, src):
+        """Iterate ``src``, adding the time spent waiting for each batch."""
+        it = iter(src)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            self.host["decode_wait"] += time.perf_counter() - t0
+            if batch is None:
+                return
+            yield batch
+
+    def device_s(self) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.steps) / 1e3
+
+
 def run_cells(engine, stitcher, data, coords):
     """The cell path's device half, one batch deep, as run_cell_inference
     drives it. Returns the seconds on the host clock."""
@@ -251,6 +351,129 @@ def k2_share(engine, x) -> float:
     except Exception as err:  # the trace is a report, not a check
         print(f"    profiler trace failed: {err!r}")
         return float("nan")
+
+
+def slide_phase(check, kernels, card, rng, side: int = SLIDE_PX) -> dict:
+    """(j): one synthetic slide through plan_slide -> PatchBatchSource ->
+    classify_slide -> the CSV writer, in parity and bf16."""
+    import pandas as pd
+    import psutil  # the decode pool's governor counts physical cores
+    import torch
+
+    from wsinsight_tpu_torch.cli.infer import default_infer_workers
+    from wsinsight_tpu_torch.engine import ClassifierEngine
+    from wsinsight_tpu_torch.engine.data import PatchBatchSource
+    from wsinsight_tpu_torch.engine.runner import classify_slide, write_slide_csv
+    from wsinsight_tpu_torch.patchlib import plan_slide
+    from wsinsight_tpu_torch.uri_path import URIPath
+    from wsinsight_tpu_torch.utils.workers import governed_workers
+    from wsinsight_tpu_torch.zoo import ModelHandle, get_registered_model, make_random_local_model
+
+    tmp = tempfile.TemporaryDirectory()
+    path = f"{tmp.name}/slide.tif"
+    tissue, secs = write_synthetic_slide(path, side, rng)
+    size = os.path.getsize(path)
+    print(f"(j) slide {side} x {side} px at {SLIDE_MPP} um/px, JPEG tiles of 256, 3 levels,"
+          f" tissue {tissue:.1%} of a coarse grid: {size / 2**20:.1f} MiB written in {secs:.1f} s"
+          f" (kept out of every rate); {card}")
+
+    handle = get_registered_model(MODEL)
+    cfg = handle.config
+    t0 = time.perf_counter()
+    plan, ctx, *_ = plan_slide(URIPath(path), None, None, None, cfg.patch_size_pixels,
+                               cfg.spacing_um_px)  # the CLI's defaults
+    plan_s = time.perf_counter() - t0
+    ctx.slide.close()
+    n, ps = len(plan.coords), plan.patch_size
+    n_batches = -(-n // BATCH)
+    print(f"    plan_slide (thumbnail, segmentation, grid): {plan_s:.2f} s on the host;"
+          f" {n} patches of {ps} px, {n_batches} batches of B={BATCH}")
+
+    workers = governed_workers(default_infer_workers())  # as run_inference sizes the pool
+    print(f"    decode pool: {workers} thread(s) at the CLI's default (min(cpu, 2 x cards) ="
+          f" {default_infer_workers()}, then governed_workers; {os.cpu_count()} logical,"
+          f" {psutil.cpu_count(logical=False)} physical cores; the host's CPUs"
+          f" {psutil.cpu_percent(interval=0.3):.0f}% busy over the next 0.3 s)")
+    stats = {"patches": n, "batches": n_batches, "plan_s": plan_s, "write_s": secs,
+             "tissue": tissue, "card": card}
+    for threads in sorted({workers, os.cpu_count() or 1}):
+        t0 = time.perf_counter()
+        src = PatchBatchSource.from_coords(path, plan.coords, ps, BATCH, num_threads=threads)
+        got = sum(b.n_valid for b in src)
+        src.close()
+        rate = got / (time.perf_counter() - t0)
+        stats[f"decode_patches_s_{threads}_threads"] = rate
+        print(f"    decode alone, {threads} thread(s){' (the CLI default)' if threads == workers else ''}:"
+              f" {rate:.1f} patches/s ({got} patches); {card}")
+
+    tmp_model = tempfile.TemporaryDirectory()
+    _, weights = make_random_local_model("resnet34", 2, tmp_model.name, seed=SEED)
+    handle = ModelHandle(name=MODEL, config=cfg, weights_path=str(weights))
+    warm = rng.integers(0, 256, (BATCH, ps, ps, 3), dtype=np.uint8)
+    header = ",".join(["minx", "miny", "width", "height"] + [f"prob_{c}" for c in cfg.class_names])
+    want = np.concatenate([plan.coords, np.full_like(plan.coords, ps)], axis=1)
+    probs, counts = {}, {}
+    for mixed in (False, True):
+        mode = "bf16" if mixed else "parity"
+        engine = ClassifierEngine(handle, mixed_precision=mixed)
+        engine.run_batch(warm, BATCH)  # warm-up: cuDNN plans, pinned buffers
+        window = Window(engine)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        src = PatchBatchSource.from_coords(path, plan.coords, ps, BATCH, num_threads=workers)
+        try:
+            coords, probs[mode] = classify_slide(engine, src, window.batches(src))
+        finally:
+            src.close()
+        wall = time.perf_counter() - t0
+        counts[mode] = {name: fn.launches for fn, name in kernels.items()}
+        busy = window.device_s() / wall
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        host = {k: v / wall for k, v in window.host.items()}
+        stats[mode] = {"patches_s": n / wall, "wall_s": wall, "busy": busy, "peak_gib": peak,
+                       "host_shares": host, "launches": counts[mode]}
+        csv = URIPath(f"{tmp.name}/{mode}.csv")
+        write_slide_csv(csv, coords, probs[mode], cfg.class_names)
+        with open(str(csv)) as fh:
+            first = fh.readline().strip()
+        df = pd.read_csv(str(csv))
+        print(f"    {mode} end to end: {n / wall:.1f} patches/s over the slide ({wall:.2f} s),"
+              f" device busy {busy:.1%} of the wall time, peak {peak:.2f} GiB; {card}")
+        print(f"    {mode} main thread, share of the wall time: waiting for decoded batches"
+              f" {host['decode_wait']:.1%}, put {host['put']:.1%}, dispatch"
+              f" {host['dispatch']:.1%}, the rest (fetching probabilities, CSV rows)"
+              f" {1 - sum(host.values()):.1%}")
+        print(f"    {mode} CSV {csv}: {len(df)} rows, header {first}")
+        check(first == header and len(df) == n
+              and np.array_equal(df[["minx", "miny", "width", "height"]].to_numpy(), want),
+              f"{mode}: the CSV holds the plan's {n} coords in order under {header}")
+        p = df[[f"prob_{c}" for c in cfg.class_names]].to_numpy()
+        dsum = float(np.abs(p.sum(axis=1) - 1.0).max())
+        check(bool(np.isfinite(p).all()) and dsum <= 1e-5,
+              f"{mode}: every row finite, sums to 1 within {dsum:.3g} (<= 1e-5)")
+        check(counts[mode]["window_attention"] == 0, f"{mode}: K2 launches 0")
+        del engine
+        torch.cuda.empty_cache()
+    err = float(np.abs(probs["bf16"] - probs["parity"]).max())
+    check(err <= 0.01, f"bf16 vs parity over the slide's {n} patches: max |dp| {err:.3g} (<= 0.01)")
+    check(counts["bf16"]["fused_preprocess"] == n_batches,
+          f"K1 launches over the bf16 slide run: {counts['bf16']['fused_preprocess']}"
+          f" (batches: {n_batches})")
+    check(counts["parity"]["fused_preprocess"] == 0, "K1 launches over the parity slide run: 0")
+    src = PatchBatchSource.from_coords(path, plan.coords[:8], ps, 8, num_threads=workers)
+    batch = next(iter(src))
+    src.close()
+    cpu = ClassifierEngine(handle, device="cpu").run_batch(batch.images, 8)
+    err = float(np.abs(probs["parity"][:8] - cpu).max())
+    check(err <= 1e-3, f"parity on the card vs the CPU, the slide's first 8 patches through the"
+          f" same source: max |dp| {err:.3g} (<= 1e-3)")
+    print(f"    {_smi('clocks.sm,power.draw,temperature.gpu')} (SM clock, power, temperature)")
+    tmp.cleanup()
+    tmp_model.cleanup()
+    return {"stats": stats, "launches": counts["bf16"]}
 
 
 def main() -> int:
@@ -534,6 +757,9 @@ def main() -> int:
         del data, engines, cpu_engine, stitchers, p32, p16, exact, on_card, on_host
         torch.cuda.empty_cache()
 
+    # (j) ------------------------------------------------------------------
+    slide = slide_phase(check, kernels, card, rng)
+
     if check.failed:
         print(f"chip_smoke: {len(check.failed)} check(s) failed", file=sys.stderr)
         return 1
@@ -551,7 +777,7 @@ def main() -> int:
         "route": "cuda",
         "source": "wsinsight_tpu_torch/ops/csrc/fused_preprocess.cu",
         "replaces": "wsinsight_tpu/ops/pallas_preprocess.py:38",
-        "launches": launches["fused_preprocess"],
+        "launches": launches["fused_preprocess"] + slide["launches"]["fused_preprocess"],
         "max_abs_err": max_abs_err,
         "ms": k1_main["ms"],
         "plain_ms": k1_main["plain_ms"],
@@ -576,6 +802,7 @@ def main() -> int:
         "shapes": k2["shapes"],
     }]}
     print(json.dumps({"cells": cell}))
+    print(json.dumps({"slide": slide["stats"]}))
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -158,6 +158,11 @@ PORT_MODULES = (
     "engine.runner", "engine.cells", "engine.stitch", "models.resnet", "models.vit",
     "models.cellvit", "models.convert", "ops.fused_preprocess", "ops.flash_attn",
     "ops.resize", "ops.cuda_build", "zoo",
+    # the classifier's host stack
+    "geometry", "uri_path", "wsi", "wsi.tiff", "wsi.slide", "patchlib.morphology",
+    "patchlib.segment", "patchlib.patch", "patchlib.io", "patchlib.pipeline",
+    "utils.workers", "utils.metadata", "utils.profiling", "engine.data", "cli._options",
+    "cli.patch", "cli.infer", "cli.run", "cli.cli", "__main__", "_version",
 )
 
 
@@ -177,3 +182,23 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     loaded = set(out.stdout.split())
     assert {f"wsinsight_tpu_torch.{m}" for m in PORT_MODULES} <= loaded
+
+
+def test_port_imports_without_h5py_or_psutil():
+    """Every module of the port imports where h5py and psutil are missing (the
+    card's machine has no h5py), still loading no jax, flax or wsinsight_tpu."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "sys.modules['h5py'] = None\n"
+        "sys.modules['psutil'] = None\n"
+        "import wsinsight_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in"
+        " ('jax', 'jaxlib', 'flax', 'wsinsight_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(' '.join(n for n in sys.modules if n.startswith('wsinsight_tpu_torch')))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert {f"wsinsight_tpu_torch.{m}" for m in PORT_MODULES} <= set(out.stdout.split())

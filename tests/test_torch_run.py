@@ -1,0 +1,206 @@
+"""The port's CLI `run` against the JAX CLI `run`, slide to CSV, on the CPU.
+
+Both packages classify `purple_slide` (tests/conftest.py) with the same
+seeded ResNet34 checkpoint: the flax msgpack of the JAX package's
+`make_random_local_model`, which the port loads through
+`models/convert.load_flax_msgpack`. The patch files, masks and model-output
+CSVs are compared: identical /coords and attrs, identical coordinate
+columns (also identical to the committed reference CSV), and probabilities
+within 2e-4. The port runs on the CPU (WSINFER_FORCE_CPU=1).
+"""
+
+import os
+
+import numpy as np
+import pandas as pd
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REFERENCE_CSV = "tests/reference/breast-tumor-resnet34.tcga-brca/purple.csv"
+COORD_COLUMNS = ["minx", "miny", "width", "height"]
+
+
+@pytest.fixture(autouse=True)
+def _cpu(monkeypatch):
+    monkeypatch.setenv("WSINFER_FORCE_CPU", "1")
+    for var in ("WSINSIGHT_PALLAS_PREPROCESS", "WSINSIGHT_WIRE", "WSINSIGHT_HOST_RESIZE",
+                "WSINSIGHT_PRECISION", "WSINSIGHT_DECODE_SCALE", "WSINSIGHT_PROFILE",
+                "JAX_COORDINATOR_ADDRESS"):
+        monkeypatch.delenv(var, raising=False)
+
+
+@pytest.fixture(scope="module")
+def model_files(tmp_path_factory):
+    """The JAX package's seeded ResNet34 (350 px patches resized to 32, as
+    tests/test_cli.py uses it): config JSON + flax msgpack. Its logits on the
+    purple patch are about 30 apart, which saturates the probabilities; the
+    head is divided so they are 1.5 apart, and the comparison sees the
+    numerics."""
+    from wsinsight_tpu.models.convert import save_flax_params
+    from wsinsight_tpu.zoo import make_random_local_model
+    from wsinsight_tpu_torch.engine import ClassifierEngine
+    from wsinsight_tpu_torch.models.convert import load_flax_msgpack
+    from wsinsight_tpu_torch.zoo import load_local_model
+
+    cfg, weights = make_random_local_model(
+        "resnet34", 2, tmp_path_factory.mktemp("runmodel"),
+        class_names=["Other", "Tumor"], resize_size=32,
+    )
+    purple = np.zeros((1, 350, 350, 3), np.uint8)
+    purple[..., 0] = purple[..., 2] = 128
+    p = ClassifierEngine(load_local_model(cfg, weights), device="cpu").run_batch(purple, 1)[0]
+    gap = abs(float(np.log(p[1]) - np.log(p[0])))
+    params = load_flax_msgpack(weights)
+    params["fc"] = {k: v * (1.5 / gap) for k, v in params["fc"].items()}
+    save_flax_params(params, weights)
+    return cfg, weights
+
+
+def _run(cli, slides, results, model_files, *extra):
+    from click.testing import CliRunner
+
+    cfg, weights = model_files
+    res = CliRunner().invoke(
+        cli,
+        ["run", "-i", str(slides), "-o", str(results), "--config", str(cfg),
+         "--model-path", str(weights), "-b", "64", *extra],
+        catch_exceptions=False,
+    )
+    assert res.exit_code == 0, res.output
+    return res.output
+
+
+def _h5(path):
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        return (
+            f["/coords"][()],
+            dict(f["/coords"].attrs),
+            dict(f["/slide"].attrs),
+        )
+
+
+def _same_attrs(a: dict, b: dict) -> None:
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]), err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def one_slide_runs(purple_slide, model_files, tmp_path_factory):
+    """(port results dir, JAX results dir) of `run` on purple_slide."""
+    from wsinsight_tpu.cli.cli import cli as jax_cli
+    from wsinsight_tpu_torch.cli.cli import cli as port_cli
+
+    out = tmp_path_factory.mktemp("runs")
+    mp = pytest.MonkeyPatch()
+    mp.setenv("WSINFER_FORCE_CPU", "1")
+    try:
+        _run(port_cli, purple_slide.parent, out / "port", model_files)
+        _run(jax_cli, purple_slide.parent, out / "jax", model_files)
+    finally:
+        mp.undo()
+    return out / "port", out / "jax"
+
+
+def test_run_patch_files_match_jax(one_slide_runs):
+    port, jax = one_slide_runs
+    p_coords, p_attrs, p_slide = _h5(port / "patches" / "purple.h5")
+    j_coords, j_attrs, j_slide = _h5(jax / "patches" / "purple.h5")
+    assert p_coords.dtype == j_coords.dtype
+    np.testing.assert_array_equal(p_coords, j_coords)
+    assert p_coords.shape == (144, 2)
+    _same_attrs(p_attrs, j_attrs)  # patch_size, patch_level, spacing, tile_dim
+    _same_attrs(p_slide, j_slide)  # slide_path, mpp, width, height
+    for res in (port, jax):
+        assert (res / "masks" / "purple.jpg").exists()
+        assert (res / "wsi_list.csv").exists()
+
+
+def test_run_csv_matches_jax_and_reference(one_slide_runs):
+    port, jax = one_slide_runs
+    p = pd.read_csv(port / "model-outputs-csv" / "purple.csv")
+    j = pd.read_csv(jax / "model-outputs-csv" / "purple.csv")
+    ref = pd.read_csv(REFERENCE_CSV)
+    assert list(p.columns) == list(j.columns) == COORD_COLUMNS + ["prob_Other", "prob_Tumor"]
+    np.testing.assert_array_equal(p[COORD_COLUMNS].to_numpy(), j[COORD_COLUMNS].to_numpy())
+    np.testing.assert_array_equal(p[COORD_COLUMNS].to_numpy(), ref[COORD_COLUMNS].to_numpy())
+    probs_p = p[["prob_Other", "prob_Tumor"]].to_numpy()
+    probs_j = j[["prob_Other", "prob_Tumor"]].to_numpy()
+    assert np.isfinite(probs_p).all()
+    assert 0.05 < probs_p.min() and probs_p.max() < 0.95  # not saturated
+    np.testing.assert_allclose(probs_p, probs_j, rtol=0, atol=2e-4)
+    np.testing.assert_allclose(probs_p.sum(axis=1), 1.0, rtol=0, atol=1e-5)
+
+
+def test_run_metadata_reports_torch(one_slide_runs):
+    import json
+
+    port, _ = one_slide_runs
+    metas = sorted(port.glob("*_metadata_*.json"))
+    assert {m.name.split("_metadata_")[0] for m in metas} == {"patch", "infer", "run"}
+    meta = json.loads(metas[0].read_text())
+    versions = meta["runtime"]["versions"]
+    assert versions["torch"] == torch.__version__ and "jax" not in versions
+    assert meta["runtime"]["devices"] == ["cpu"]
+    assert meta["model_config"]["architecture"] == "resnet34"
+    assert meta["model_weights"]["weights_sha256"]
+
+
+def test_run_cohort_prefetch_and_resume(purple_slide, model_files, one_slide_runs, tmp_path,
+                                        monkeypatch):
+    """Two slides (symlinks of purple_slide) through the port alone: the
+    second slide's source is opened and started by the cross-slide prefetch
+    while the first slide runs; each slide's .h5 and CSV equal the one-slide
+    run's; a second `run` skips both stages and leaves every file as it was."""
+    import threading
+
+    from wsinsight_tpu_torch.cli.cli import cli as port_cli
+    from wsinsight_tpu_torch.engine import runner
+
+    opened_ahead = threading.Event()
+
+    class Source(runner.PatchBatchSource):
+        def __iter__(self):
+            if threading.current_thread() is not threading.main_thread():
+                opened_ahead.set()
+            return super().__iter__()
+
+    classify, prefetched = runner.classify_slide, []
+
+    def spy(engine, src, it=None):
+        if not prefetched:  # the first slide waits for the second's prefetch
+            assert opened_ahead.wait(60)
+        prefetched.append(it is not None)
+        return classify(engine, src, it)
+
+    monkeypatch.setattr(runner, "PatchBatchSource", Source)
+    monkeypatch.setattr(runner, "classify_slide", spy)
+    slides = tmp_path / "slides"
+    slides.mkdir()
+    for stem in ("s1", "s2"):
+        os.symlink(purple_slide, slides / f"{stem}.tif")
+    results = tmp_path / "results"
+    _run(port_cli, slides, results, model_files)
+    assert prefetched == [False, True]
+
+    one = one_slide_runs[0]
+    o_coords, o_attrs, _ = _h5(one / "patches" / "purple.h5")
+    o_csv = (one / "model-outputs-csv" / "purple.csv").read_text()
+    files = []
+    for stem in ("s1", "s2"):
+        coords, attrs, slide_attrs = _h5(results / "patches" / f"{stem}.h5")
+        np.testing.assert_array_equal(coords, o_coords)
+        _same_attrs(attrs, o_attrs)
+        assert slide_attrs["slide_path"].endswith(f"{stem}.tif")
+        csv = results / "model-outputs-csv" / f"{stem}.csv"
+        assert csv.read_text() == o_csv
+        files += [csv, results / "patches" / f"{stem}.h5", results / "masks" / f"{stem}.jpg"]
+
+    stamps = [f.stat().st_mtime_ns for f in files]
+    out = _run(port_cli, slides, results, model_files)
+    assert out.count("Output CSV exists... skipping.") == 2
+    assert [f.stat().st_mtime_ns for f in files] == stamps
+    assert prefetched == [False, True]  # nothing classified again

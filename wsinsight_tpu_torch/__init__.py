@@ -10,7 +10,11 @@ ClassifierEngine``) with its preprocess (``ops``) and the ResNet family; the
 CellViT cell engine (``engine.cells.CellEngine``) with the SAM and ViT-256
 encoders and their fused window attention (``ops.flash_attn``), and the
 stitcher's device half (``engine.stitch``); weight loading
-(``models.convert``, ``zoo``) and device resolution (``parallel.mesh``).
+(``models.convert``, ``zoo``) and device resolution (``parallel.mesh``); and
+the classifier's host stack, slide to CSV: the TIFF reader (``wsi``), tissue
+segmentation and the patch grid (``patchlib``), the threaded decode
+(``engine.data``), ``engine.runner.run_inference`` and the ``patch`` /
+``infer`` / ``run`` CLI (``python -m wsinsight_tpu_torch``).
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,62 @@
+"""Top-level click group (reference: wsinsight/cli/cli.py:22-55).
+
+Counterpart of wsinsight_tpu/cli/cli.py with the ``patch``, ``infer`` and
+``run`` commands; ``hplot`` and ``cme`` wait for ROADMAP.md Queue 1 item 9,
+``models`` and multi-host runs for item 10.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+
+import click
+
+from .._version import __version__
+from ..errors import not_ported
+from ..wsi import set_backend
+
+
+@click.group()
+@click.option(
+    "--backend",
+    default=None,
+    help="Backend for reading whole slide images ('tpu' built-in reader,"
+    " 'tiffslide' or 'openslide' if installed).",
+    type=click.Choice(["tpu", "tiffslide", "openslide"]),
+)
+@click.option(
+    "--log-level",
+    default="info",
+    type=click.Choice(["debug", "info", "warning", "error", "critical"]),
+    help="Set the loudness of logging.",
+)
+@click.version_option(version=__version__)
+def cli(backend: str | None = None, log_level: str = "info") -> None:
+    """WSInsight (PyTorch/CUDA port): pathology inference on whole slide images."""
+    levels = {
+        "debug": logging.DEBUG,
+        "info": logging.INFO,
+        "warning": logging.WARNING,
+        "error": logging.ERROR,
+        "critical": logging.CRITICAL,
+    }
+    logging.basicConfig(
+        format="%(asctime)s - %(levelname)s - %(module)s:%(lineno)d - %(message)s",
+        level=levels[log_level],
+    )
+    # The JAX package fans slides out over hosts when a coordinator is set;
+    # the port would run every slide on every host instead.
+    if os.getenv("JAX_COORDINATOR_ADDRESS"):
+        raise click.UsageError(not_ported("multi-host runs (JAX_COORDINATOR_ADDRESS)", 10))
+    if backend is not None:
+        set_backend(backend)
+
+
+from .infer import infer  # noqa: E402
+from .patch import patch  # noqa: E402
+from .run import run  # noqa: E402
+
+cli.add_command(run)
+cli.add_command(patch)
+cli.add_command(infer)

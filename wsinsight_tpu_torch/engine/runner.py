@@ -1,9 +1,11 @@
-"""The patch-classification engine: preprocess -> forward -> probabilities.
+"""Patch classification: the engine (preprocess -> forward -> probabilities)
+and ``run_inference``, which runs it over every slide's patches into CSVs.
 
-Counterpart of ``ClassifierEngine`` in wsinsight_tpu/engine/runner.py, with
-the same surface (``spec``, ``n_devices``, ``pad_batch``, ``put``,
+Counterpart of wsinsight_tpu/engine/runner.py. ``ClassifierEngine`` has the
+JAX engine's surface (``spec``, ``n_devices``, ``pad_batch``, ``put``,
 ``dispatch``, ``run_batch``, ``set_stains``). ``run_inference`` builds one per
-run and calls it for each batch, two batches deep::
+run, and ``classify_slide`` calls it for each batch of a slide, two batches
+deep::
 
     pending = deque()
     for images in batches:
@@ -13,32 +15,55 @@ run and calls it for each batch, two batches deep::
 
 PyTorch runs eagerly, so the step is a plain method; ``dispatch`` enqueues it
 on the current CUDA stream and returns without waiting.
+
+``run_inference`` has the JAX function's default branch (patch
+classification), its cross-slide source prefetch, resume and CSV schema
+(``minx,miny,width,height,prob_<class>...``). Its other branches raise
+``NotImplementedError`` naming the ROADMAP.md Queue 1 item they wait for:
+the QuPath pseudo-models and the references overlay (item 4), end2end cells
+(item 2) and stain normalization (item 5). Multi-host fan-out (item 10) is not
+ported; each process runs every slide it is given.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
+import threading
+from collections import deque
+from typing import Iterator, List
 
 import numpy as np
+import pandas as pd
 import torch
+import tqdm
 
+from .. import errors
+from ..errors import not_ported
 from ..models import create_model
 from ..ops.fused_preprocess import make_fused_preprocess_fn
 from ..ops.preprocess import TransformSpec, make_preprocess_fn
 from ..parallel.mesh import pad_to_multiple, resolve_device
+from ..uri_path import URIPath
+from ..utils.profiling import maybe_trace
+from ..utils.workers import governed_workers
+from ..wsi import _validate_wsi_directory
 from ..zoo import ModelHandle
+from .data import Batch, PatchBatchSource
+
+logger = logging.getLogger(__name__)
 
 
 def _refuse_unported_options(classifier: bool = True) -> None:
     """Options of the JAX engines not ported yet (host resize is the
-    classifier's alone)."""
+    classifier's alone; PatchBatchSource refuses WSINSIGHT_DECODE_SCALE)."""
     if os.getenv("WSINSIGHT_WIRE", "").lower() == "yuv420":
-        raise NotImplementedError("WSINSIGHT_WIRE=yuv420 is not yet ported to torch")
+        raise NotImplementedError(not_ported("WSINSIGHT_WIRE=yuv420", 5))
     if classifier and os.getenv("WSINSIGHT_HOST_RESIZE", "0") not in ("0", ""):
-        raise NotImplementedError("WSINSIGHT_HOST_RESIZE is not yet ported to torch")
+        raise NotImplementedError(not_ported("WSINSIGHT_HOST_RESIZE", 5))
     if os.getenv("WSINSIGHT_PRECISION"):
-        raise NotImplementedError("WSINSIGHT_PRECISION is not yet ported to torch")
+        raise NotImplementedError(not_ported("WSINSIGHT_PRECISION", 5))
 
 
 class ClassifierEngine:
@@ -71,7 +96,7 @@ class ClassifierEngine:
         device: str | torch.device | None = None,
     ):
         if w_est is not None or w_def is not None:
-            raise NotImplementedError("stain normalization is not yet ported to torch")
+            raise NotImplementedError(not_ported("stain normalization", 5))
         _refuse_unported_options()
         self.device = resolve_device(device)
         self.n_devices = 1  # one device in this slice; max_devices has nothing to cut
@@ -99,7 +124,7 @@ class ClassifierEngine:
         self._preprocess = preprocess
 
     def set_stains(self, w_est: np.ndarray, w_def: np.ndarray) -> None:
-        raise NotImplementedError("stain normalization is not yet ported to torch")
+        raise NotImplementedError(not_ported("stain normalization", 5))
 
     def pad_batch(self, n: int) -> int:
         """Global batch size: requested size rounded up to the device count."""
@@ -130,3 +155,213 @@ class ClassifierEngine:
 
     def run_batch(self, images_u8: np.ndarray, n_valid: int) -> np.ndarray:
         return self._step(self.put(images_u8)).cpu().numpy()[:n_valid]
+
+
+def classify_slide(
+    engine: ClassifierEngine, src: PatchBatchSource, it: Iterator[Batch] | None = None
+) -> tuple[np.ndarray, np.ndarray]:
+    """One slide's patches through ``engine``: ((N, 4) coords, (N, K) probs)
+    in the source's order.
+
+    Two-deep window: batch i+1 is dispatched before batch i's probabilities
+    are fetched, and ``device_prefetch`` issues each ``put`` two batches
+    ahead, so decode, copy and compute overlap. ``it`` is an iterator of
+    ``src`` already started (the cross-slide prefetch's)."""
+    slide_coords: list[np.ndarray] = []
+    slide_probs: list[np.ndarray] = []
+    pending: deque = deque()
+
+    def drain() -> None:
+        out, n_valid, coords = pending.popleft()
+        slide_probs.append(out.cpu().numpy()[:n_valid])
+        slide_coords.append(coords[:n_valid])
+        qbar.update(1)
+
+    with tqdm.tqdm(total=src.num_batches, position=1, leave=False) as qbar:
+        for batch in src.device_prefetch(engine.put, depth=2, it=it):
+            pending.append((engine.dispatch(batch.images), batch.n_valid, batch.coords))
+            if len(pending) > 2:
+                drain()
+        while pending:
+            drain()
+    return np.concatenate(slide_coords, axis=0), np.concatenate(slide_probs, axis=0)
+
+
+def write_slide_csv(
+    path: URIPath, coords: np.ndarray, probs: np.ndarray, class_names
+) -> None:
+    """The model-output CSV of one slide: minx,miny,width,height,prob_<class>...
+    (reference: run_inference.py:568-607)."""
+    slide_df = pd.DataFrame(
+        dict(minx=coords[:, 0], miny=coords[:, 1], width=coords[:, 2], height=coords[:, 3])
+    )
+    slide_df.loc[:, [f"prob_{c}" for c in class_names]] = probs
+    with path.open("w") as fh:
+        slide_df.to_csv(fh, index=False)
+
+
+def run_inference(
+    wsi_dir: URIPath | None,
+    slide_paths: List[URIPath] | None,
+    results_dir: URIPath,
+    references_dir: str | URIPath | None = None,
+    qupath_detection_dir: str | URIPath | None = None,
+    qupath_geojson_detection_dir: str | URIPath | None = None,
+    qupath_geojson_annotation_dir: str | URIPath | None = None,
+    qupath_name_as_class: bool = False,
+    model_info: ModelHandle | None = None,
+    halo_size_px: int = 46,
+    batch_size: int = 32,
+    num_workers: int = 4,
+    speedup: bool = False,
+    stain_normalization: bool = False,
+    object_based: bool = False,
+    object_detection: str | None = None,
+    mixed_precision: bool = False,
+    stitch_workers: int | None = None,
+    device: str | torch.device | None = None,
+) -> tuple[list[str], list[str]]:
+    """Run batched inference on precomputed patches; emit per-slide CSVs.
+
+    Returns (failed_patching, failed_inference) slide-stem lists
+    (reference: run_inference.py:45-105). ``device`` follows
+    ``parallel.mesh.resolve_device``: the card unless the caller asks for
+    the CPU."""
+    if qupath_detection_dir or qupath_geojson_detection_dir or qupath_geojson_annotation_dir:
+        raise NotImplementedError(not_ported("the QuPath pseudo-models", 4))
+    if object_based and object_detection == "end2end":
+        raise NotImplementedError(not_ported("end2end cell inference", 2))
+    if stain_normalization:
+        raise NotImplementedError(not_ported("stain normalization", 5))
+    if references_dir is not None and object_based:
+        raise NotImplementedError(not_ported("the references overlay", 4))
+
+    # `speedup` is the CLI's name for the bf16 fast path; API callers get the
+    # same semantics the CLI pre-folds (JAX package: cli/infer.py:255).
+    mixed_precision = mixed_precision or speedup
+
+    if wsi_dir:
+        if not wsi_dir.exists():
+            raise errors.WholeSlideImageDirectoryNotFound(f"directory not found: {wsi_dir}")
+        _validate_wsi_directory(wsi_dir)
+    if not results_dir.exists():
+        raise errors.ResultsDirectoryNotFound(str(results_dir))
+
+    patch_dir = results_dir / "patches"
+    if not patch_dir.exists():
+        raise errors.PatchDirectoryNotFound(
+            "The 'patches' directory was not found in results directory. This can"
+            " happen for a few reasons: 1) no tissue was detected in the slides,"
+            " 2) the physical spacing (MPP) could not be read from any of the"
+            " slides, or 3) something else... Please read the logs above for"
+            " potential errors."
+        )
+    patch_paths = [p for p in patch_dir.iterdir() if p.is_file()]
+    if slide_paths:
+        stems = {s.stem for s in slide_paths}
+        patch_paths = [p for p in patch_paths if p.stem in stems]
+
+    model_output_dir = results_dir / "model-outputs-csv"
+    model_output_dir.mkdir(exist_ok=True)
+
+    failed_patching = [p.stem for p in patch_paths if not p.exists()]
+    failed_inference: list[str] = []
+    engine: ClassifierEngine | None = None
+
+    # Cross-slide overlap: while slide i drains, a background thread opens
+    # slide i+1's patch source and STARTS its decode producer, so the first
+    # batches are already in the prefetch queue when its turn comes (the
+    # reference pays a cold DataLoader spin-up per slide instead,
+    # run_inference.py:288-299).
+    prefetch_lock = threading.Lock()
+    prefetched: dict[str, tuple] = {}
+
+    def spawn_source_prefetch(next_patch_path) -> None:
+        def work():
+            src = None
+            try:
+                nxt_wsi, use_imgs = _slide_attrs(next_patch_path)
+                if (model_output_dir / nxt_wsi.with_suffix(".csv").name).exists():
+                    return
+                src = PatchBatchSource(
+                    wsi_path=nxt_wsi,
+                    patch_path=next_patch_path,
+                    use_hdf5_images=use_imgs,
+                    batch_size=engine.pad_batch(batch_size),
+                    num_threads=governed_workers(num_workers or 4),
+                )
+                it = iter(src)  # starts the producer thread
+                with prefetch_lock:
+                    prefetched[str(next_patch_path)] = (src, it)
+            except Exception:
+                # the slide's own turn opens it again and reports the error
+                if src is not None:
+                    src.close()
+
+        threading.Thread(target=work, daemon=True).start()
+
+    with maybe_trace("inference"), tqdm.tqdm(
+        total=len(patch_paths), desc="Images", position=0
+    ) as pbar:
+        for slide_idx, patch_path in enumerate(patch_paths):
+            wsi_path, use_hdf5_images = _slide_attrs(patch_path)
+            slide_csv = model_output_dir / wsi_path.with_suffix(".csv").name
+            if slide_csv.exists():
+                print("Output CSV exists... skipping.")
+                print(slide_csv)
+                pbar.update(1)
+                continue
+
+            if engine is None:
+                engine = ClassifierEngine(
+                    model_info, mixed_precision=mixed_precision, device=device
+                )
+            with prefetch_lock:
+                pre = prefetched.pop(str(patch_path), None)
+            src_iter = None
+            if pre is not None:
+                src, src_iter = pre
+            else:
+                try:
+                    src = PatchBatchSource(
+                        wsi_path=wsi_path,
+                        patch_path=patch_path,
+                        use_hdf5_images=use_hdf5_images,
+                        batch_size=engine.pad_batch(batch_size),
+                        num_threads=governed_workers(num_workers or 4),
+                    )
+                except Exception as err:
+                    logger.error(f"could not open patches for {wsi_path}", exc_info=err)
+                    failed_inference.append(wsi_path.stem)
+                    pbar.update(1)
+                    continue
+            # overlap: start the NEXT slide's source while this one runs
+            if not object_based and slide_idx + 1 < len(patch_paths):
+                spawn_source_prefetch(patch_paths[slide_idx + 1])
+
+            try:
+                coords_arr, probs_arr = classify_slide(engine, src, src_iter)
+            finally:
+                src.close()
+            if len(coords_arr):
+                write_slide_csv(slide_csv, coords_arr, probs_arr,
+                                model_info.config.class_names)
+            pbar.update(1)
+
+    # Close any lookahead sources whose slide was skipped/failed after the
+    # prefetch was issued (their producer threads park on the bounded queue).
+    with prefetch_lock:
+        for leftover_src, _ in prefetched.values():
+            leftover_src.close()
+        prefetched.clear()
+
+    return failed_patching, failed_inference
+
+
+def _slide_attrs(patch_path) -> tuple[URIPath, bool]:
+    """(slide path, whether the patch file caches /images) of a patch file."""
+    import h5py
+
+    local = patch_path.materialize() if isinstance(patch_path, URIPath) else patch_path
+    with h5py.File(local, "r") as f:
+        return URIPath(f["/slide"].attrs["slide_path"]), "/images" in f

@@ -21,6 +21,7 @@ their shapes cannot either.
 
 from __future__ import annotations
 
+import hashlib
 import os
 from typing import Any, Mapping
 
@@ -129,3 +130,11 @@ def load_flax_msgpack(path: str | os.PathLike) -> dict:
 
     with open(path, "rb") as fh:
         return unchunk(msgpack.unpackb(fh.read(), ext_hook=ext_hook, raw=False))
+
+
+def sha256_file(path: str | os.PathLike) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as fh:
+        for chunk in iter(lambda: fh.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
