@@ -13,13 +13,17 @@ failure exits non-zero and prints no result line:
 
   (a) the card's name and power limit; no CUDA -> exit 1;
   (b) build every kernel from the checkout's sources (one nvcc per source),
-      printing each kernel's registers and spills as ptxas reports them;
+      printing each kernel's registers and spills as ptxas reports them, and
+      beside them the host library (native/*.cpp, one g++): its command,
+      seconds, whether libjpeg was found, and the libjpeg and zlib it linked;
   (c) K1 (fused uint8 -> PIL resize -> normalize) vs its plain version on the
-      card, f32 and bf16, bit for bit, at B=256 350->224, 175->224 and
-      350->299, B=3 97->64, and on x[1:] of a B=257 350 px batch (its first
-      image not 16-byte aligned); K1's time over 50 launches (CUDA events) at
-      B=256 350->224, 175->224 and 350->299 in both dtypes, with the bytes
-      per second reached and the share of its bound;
+      card, f32 and bf16, bit for bit, at B=256 350->224, 175->224, 176->224
+      (the DCT half decode's patch), 224->224 (a host-resized patch, one tap)
+      and 350->299, B=3 97->64, and on x[1:] of a B=257 350 px batch (its
+      first image not 16-byte aligned); K1's time over 50 launches (CUDA
+      events) at B=256 350->224, 175->224, 176->224, 224->224 and 350->299 in
+      both dtypes, with the bytes per second reached and the share of its
+      bound;
   (d) ClassifierEngine in parity (fp32, TF32 off, exact resize) and in
       mixed_precision (bf16, K1): 20 batches of B=256 through put -> dispatch
       with the two-deep window of run_inference; patches/s, peak memory, and
@@ -50,20 +54,39 @@ failure exits non-zero and prints no result line:
   (j) slide-level classification through the port's host stack: a seeded
       synthetic slide (24,576 x 24,576 px at 0.25 um/px, JPEG tiles of 256,
       3 levels, H&E-coloured tissue blobs over about half of it, per-pixel
-      noise) written with the port's write_pyramidal_tiff; plan_slide with
+      noise) written with the port's write_pyramidal_tiff, and a lossless
+      twin (deflate, one level) of its top-left quarter; plan_slide with
       the CLI's defaults for the model (thumbnail, segmentation, grid; host
-      seconds); PatchBatchSource.from_coords alone at B=256 (decode
-      patches/s at the CLI's default worker count and at one per core);
+      seconds); PatchBatchSource.from_coords alone at B=256, on each slide:
+      decode patches/s through the native reader at the CLI's default worker
+      count and at one per core, and through the Python tile path (forced)
+      at one per core, with the slide's count of native and Python reads
+      (the JPEG slide decodes natively only where libjpeg was found);
       classify_slide with ClassifierEngine in parity and bf16 (K1) at B=256:
       patches/s over the slide, peak memory, device-busy share (per-batch
       step times from CUDA events over the wall time), the CSV through the
       port's writer; checks: the CSV holds the plan's coords in order under
       the model's header, rows finite and summing to 1, bf16 vs parity
       <= 0.01, 8 of the slide's patches on the card vs the CPU <= 1e-3, K1
-      launches equal to the bf16 run's batches.
+      launches equal to the bf16 run's batches, every patch read natively
+      (Python reads 0) where libjpeg was found, else every one in Python;
+  (k) the fast input on the same slide and plan: bf16 with the YUV 4:2:0 wire
+      and the DCT half decode (WSINSIGHT_WIRE=yuv420 WSINSIGHT_DECODE_SCALE=2;
+      the source says whether the half decode ran: it needs a JPEG page and
+      libjpeg), bf16 with the host resize on the RGB wire
+      (WSINSIGHT_HOST_RESIZE=1), and parity with the host resize: patches/s,
+      device-busy share, put ms and bytes per batch, peak memory; checks: K1
+      launches equal to the bf16 runs' batches, parity with the host resize
+      equal to (j)'s parity run within 1e-6, the packed fast input of 8
+      patches on the card vs the CPU (parity) <= 1e-3, rows finite and
+      summing to 1, and the Macenko stain estimate of a 256-patch sample on
+      the card vs the CPU <= 1e-4; reported, not checked (lossy by contract):
+      max |dp| and argmax agreement of each bf16 run against (j)'s bf16 run.
 
 The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+{"ok": true, "device": {...}}, printed exactly when every phase passed, and
+then the script exits 0; otherwise it exits 1 (also where CUDA is missing or
+the port's package is not beside it). Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -75,6 +98,7 @@ import sys
 import tempfile
 import time
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -87,8 +111,9 @@ CELL_BATCHES = 8
 CELL_BATCH = 32
 CELL_GRID = 16  # the cell canvas is a CELL_GRID x CELL_GRID grid of patches
 # K1's timed resizes at B=BATCH: the main path's 350 -> 224 first, then
-# upsampling 175 -> 224 and the odd output width of 350 -> 299.
-K1_TIMED = ((350, 224), (175, 224), (350, 299))
+# upsampling 175 -> 224, the fast input's 176 -> 224 (DCT half decode) and
+# 224 -> 224 (host resize), and the odd output width of 350 -> 299.
+K1_TIMED = ((350, 224), (175, 224), (176, 224), (224, 224), (350, 299))
 
 # Data-sheet rates by card name: (bytes/s, fp32 FLOP/s outside the tensor
 # cores, dense bf16 tensor-core FLOP/s, dense TF32 tensor-core FLOP/s).
@@ -124,6 +149,7 @@ SLIDE_BACKGROUND = (236, 236, 236)  # neutral glass: no saturation
 # H&E tones: hematoxylin-rich purples, eosin pinks
 SLIDE_TONES = ((176, 98, 168), (214, 132, 186), (150, 80, 160), (226, 160, 200))
 SLIDE_NOISE = 17  # uniform in [-17, 17]: sigma 10.1 levels
+TWIN_SIDE = SLIDE_PX // 2  # the lossless twin: the slide's top-left quarter
 
 
 def _smi(query: str) -> str:
@@ -236,10 +262,12 @@ def sdpa_call(qkv, rh, rw, heads, window, scale):
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
 
 
-def write_synthetic_slide(path: str, side: int, rng: np.random.Generator) -> tuple[float, float]:
+def write_synthetic_slide(path: str, side: int, rng: np.random.Generator,
+                          twin_path: str, twin_side: int) -> tuple[float, float, float]:
     """Write (j)'s slide: tissue ellipses in H&E tones on neutral glass, with
-    per-pixel noise, built in strips of rows, as a 3-level JPEG pyramid.
-    Returns (tissue share on a coarse grid, seconds)."""
+    per-pixel noise, built in strips of rows, as a 3-level JPEG pyramid; and
+    its lossless twin, the top-left ``twin_side`` px square as one deflate
+    level. Returns (tissue share on a coarse grid, seconds, twin seconds)."""
     from wsinsight_tpu_torch.wsi.tiff import write_pyramidal_tiff
 
     t0 = time.perf_counter()
@@ -264,7 +292,11 @@ def write_synthetic_slide(path: str, side: int, rng: np.random.Generator) -> tup
         img[y0:y0 + len(ys)] = np.clip(strip, 0, 255)
     write_pyramidal_tiff(path, img, tile=(256, 256), compression="jpeg", mpp=SLIDE_MPP,
                          levels=3)
-    return float(covered.mean()), time.perf_counter() - t0
+    secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_pyramidal_tiff(twin_path, img[:twin_side, :twin_side], tile=(256, 256),
+                         compression="deflate", mpp=SLIDE_MPP, levels=1)
+    return float(covered.mean()), secs, time.perf_counter() - t0
 
 
 class Window:
@@ -353,29 +385,95 @@ def k2_share(engine, x) -> float:
         return float("nan")
 
 
+def decode_alone(path, coords, ps, threads, python=False):
+    """Decode a plan's patches alone through PatchBatchSource at B=BATCH:
+    (patches/s, the slide's reads). ``python`` forces every level onto the
+    Python tile path, as tests/test_native_decode.py forces it."""
+    from wsinsight_tpu_torch.engine.data import PatchBatchSource
+
+    t0 = time.perf_counter()
+    src = PatchBatchSource.from_coords(path, coords, ps, BATCH, num_threads=threads)
+    if python:
+        src._slide._native = {lvl: False for lvl in range(src._slide.level_count)}
+    try:
+        got = sum(b.n_valid for b in src)
+    finally:
+        src.close()
+    return got / (time.perf_counter() - t0), dict(src._slide.reads)
+
+
+def run_slide(engine, kernels, path, coords, ps, workers, **source_opts):
+    """classify_slide over a plan, timed: (coords, probs, stats). Stats hold
+    patches/s, device-busy share, the main thread's split, put ms and bytes
+    per batch, peak memory, kernel launches, the slide's reads and what the
+    source shipped (wire, decode scale, image size)."""
+    import torch
+
+    from wsinsight_tpu_torch.engine.data import PatchBatchSource
+    from wsinsight_tpu_torch.engine.runner import classify_slide
+
+    plain = engine.put, engine.dispatch
+    window = Window(engine)
+    sizes = []
+    put = engine.put
+
+    def put_sized(images):
+        sizes.append(images.nbytes)
+        return put(images)
+
+    engine.put = put_sized
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    src = PatchBatchSource.from_coords(path, coords, ps, BATCH, num_threads=workers,
+                                       **source_opts)
+    try:
+        out_coords, probs = classify_slide(engine, src, window.batches(src))
+    finally:
+        src.close()
+        engine.put, engine.dispatch = plain
+    wall = time.perf_counter() - t0
+    n = len(coords)
+    stats = {"patches_s": n / wall, "wall_s": wall, "busy": window.device_s() / wall,
+             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "host_shares": {k: v / wall for k, v in window.host.items()},
+             "put_ms_per_batch": window.host["put"] / len(sizes) * 1e3,
+             "bytes_per_batch": sizes[0], "launches": {name: fn.launches for fn, name in kernels.items()},
+             "reads": dict(src._slide.reads), "wire": src.wire or "rgb",
+             "decode_scale": src.decode_scale, "image_hw": list(src.image_hw)}
+    return out_coords, probs, stats
+
+
 def slide_phase(check, kernels, card, rng, side: int = SLIDE_PX) -> dict:
     """(j): one synthetic slide through plan_slide -> PatchBatchSource ->
-    classify_slide -> the CSV writer, in parity and bf16."""
+    classify_slide -> the CSV writer, in parity and bf16; then (k), the fast
+    input on the same slide."""
     import pandas as pd
     import psutil  # the decode pool's governor counts physical cores
     import torch
 
+    from wsinsight_tpu_torch import native
     from wsinsight_tpu_torch.cli.infer import default_infer_workers
     from wsinsight_tpu_torch.engine import ClassifierEngine
     from wsinsight_tpu_torch.engine.data import PatchBatchSource
-    from wsinsight_tpu_torch.engine.runner import classify_slide, write_slide_csv
+    from wsinsight_tpu_torch.engine.runner import write_slide_csv
+    from wsinsight_tpu_torch.ops.preprocess import TransformSpec
     from wsinsight_tpu_torch.patchlib import plan_slide
     from wsinsight_tpu_torch.uri_path import URIPath
     from wsinsight_tpu_torch.utils.workers import governed_workers
     from wsinsight_tpu_torch.zoo import ModelHandle, get_registered_model, make_random_local_model
 
     tmp = tempfile.TemporaryDirectory()
-    path = f"{tmp.name}/slide.tif"
-    tissue, secs = write_synthetic_slide(path, side, rng)
+    path, twin = f"{tmp.name}/slide.tif", f"{tmp.name}/twin.tif"
+    tissue, secs, twin_secs = write_synthetic_slide(path, side, rng, twin, TWIN_SIDE)
     size = os.path.getsize(path)
     print(f"(j) slide {side} x {side} px at {SLIDE_MPP} um/px, JPEG tiles of 256, 3 levels,"
           f" tissue {tissue:.1%} of a coarse grid: {size / 2**20:.1f} MiB written in {secs:.1f} s"
-          f" (kept out of every rate); {card}")
+          f"; its lossless twin ({TWIN_SIDE} px square, deflate tiles of 256, one level):"
+          f" {os.path.getsize(twin) / 2**20:.1f} MiB in {twin_secs:.1f} s (kept out of every"
+          f" rate); {card}")
 
     handle = get_registered_model(MODEL)
     cfg = handle.config
@@ -386,25 +484,38 @@ def slide_phase(check, kernels, card, rng, side: int = SLIDE_PX) -> dict:
     ctx.slide.close()
     n, ps = len(plan.coords), plan.patch_size
     n_batches = -(-n // BATCH)
+    twin_coords = plan.coords[(plan.coords < TWIN_SIDE - ps).all(axis=1)]
     print(f"    plan_slide (thumbnail, segmentation, grid): {plan_s:.2f} s on the host;"
-          f" {n} patches of {ps} px, {n_batches} batches of B={BATCH}")
+          f" {n} patches of {ps} px, {n_batches} batches of B={BATCH}; {len(twin_coords)}"
+          " of them lie inside the twin")
 
     workers = governed_workers(default_infer_workers())  # as run_inference sizes the pool
+    cores = os.cpu_count() or 1
+    jpeg = native.has_jpeg()
     print(f"    decode pool: {workers} thread(s) at the CLI's default (min(cpu, 2 x cards) ="
-          f" {default_infer_workers()}, then governed_workers; {os.cpu_count()} logical,"
+          f" {default_infer_workers()}, then governed_workers; {cores} logical,"
           f" {psutil.cpu_count(logical=False)} physical cores; the host's CPUs"
           f" {psutil.cpu_percent(interval=0.3):.0f}% busy over the next 0.3 s)")
+    print(f"    host library built {'with' if jpeg else 'WITHOUT'} libjpeg: the JPEG slide's"
+          f" patches decode {'natively' if jpeg else 'through the Python tile path (cv2)'}"
+          "; the twin's natively")
     stats = {"patches": n, "batches": n_batches, "plan_s": plan_s, "write_s": secs,
-             "tissue": tissue, "card": card}
-    for threads in sorted({workers, os.cpu_count() or 1}):
-        t0 = time.perf_counter()
-        src = PatchBatchSource.from_coords(path, plan.coords, ps, BATCH, num_threads=threads)
-        got = sum(b.n_valid for b in src)
-        src.close()
-        rate = got / (time.perf_counter() - t0)
-        stats[f"decode_patches_s_{threads}_threads"] = rate
-        print(f"    decode alone, {threads} thread(s){' (the CLI default)' if threads == workers else ''}:"
-              f" {rate:.1f} patches/s ({got} patches); {card}")
+             "twin_patches": len(twin_coords), "twin_write_s": twin_secs, "tissue": tissue,
+             "card": card, "libjpeg": jpeg, "decode": {}}
+    for name, p, coords in (("jpeg", path, plan.coords), ("twin", twin, twin_coords)):
+        native_runs = [("native", t, False) for t in sorted({workers, cores})] if (
+            name == "twin" or jpeg) else []
+        for how, threads, python in native_runs + [("python", cores, True)]:
+            rate, reads = decode_alone(p, coords, ps, threads, python)
+            stats["decode"][f"{name}_{how}_{threads}_threads"] = {"patches_s": rate,
+                                                                  "reads": reads}
+            print(f"    decode alone, {name} slide, {how} path, {threads} thread(s)"
+                  f"{' (the CLI default)' if threads == workers else ''}: {rate:.1f} patches/s"
+                  f" ({len(coords)} patches; reads {reads}); {card}")
+            want = {"native": 0, "python": len(coords)} if python else {"native": len(coords),
+                                                                         "python": 0}
+            check(reads == want, f"{name} slide, {how} decode at {threads} thread(s): reads"
+                  f" {reads} ({want})")
 
     tmp_model = tempfile.TemporaryDirectory()
     _, weights = make_random_local_model("resnet34", 2, tmp_model.name, seed=SEED)
@@ -412,36 +523,24 @@ def slide_phase(check, kernels, card, rng, side: int = SLIDE_PX) -> dict:
     warm = rng.integers(0, 256, (BATCH, ps, ps, 3), dtype=np.uint8)
     header = ",".join(["minx", "miny", "width", "height"] + [f"prob_{c}" for c in cfg.class_names])
     want = np.concatenate([plan.coords, np.full_like(plan.coords, ps)], axis=1)
-    probs, counts = {}, {}
+    probs, counts, engines = {}, {}, {}
     for mixed in (False, True):
         mode = "bf16" if mixed else "parity"
-        engine = ClassifierEngine(handle, mixed_precision=mixed)
+        engine = engines[mode] = ClassifierEngine(handle, mixed_precision=mixed)
         engine.run_batch(warm, BATCH)  # warm-up: cuDNN plans, pinned buffers
-        window = Window(engine)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for fn in kernels:
-            fn.launches = 0
-        t0 = time.perf_counter()
-        src = PatchBatchSource.from_coords(path, plan.coords, ps, BATCH, num_threads=workers)
-        try:
-            coords, probs[mode] = classify_slide(engine, src, window.batches(src))
-        finally:
-            src.close()
-        wall = time.perf_counter() - t0
-        counts[mode] = {name: fn.launches for fn, name in kernels.items()}
-        busy = window.device_s() / wall
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        host = {k: v / wall for k, v in window.host.items()}
-        stats[mode] = {"patches_s": n / wall, "wall_s": wall, "busy": busy, "peak_gib": peak,
-                       "host_shares": host, "launches": counts[mode]}
+        coords, probs[mode], st = run_slide(engine, kernels, path, plan.coords, ps, workers)
+        counts[mode] = st["launches"]
+        stats[mode] = st
         csv = URIPath(f"{tmp.name}/{mode}.csv")
         write_slide_csv(csv, coords, probs[mode], cfg.class_names)
         with open(str(csv)) as fh:
             first = fh.readline().strip()
         df = pd.read_csv(str(csv))
-        print(f"    {mode} end to end: {n / wall:.1f} patches/s over the slide ({wall:.2f} s),"
-              f" device busy {busy:.1%} of the wall time, peak {peak:.2f} GiB; {card}")
+        host = st["host_shares"]
+        print(f"    {mode} end to end: {st['patches_s']:.1f} patches/s over the slide"
+              f" ({st['wall_s']:.2f} s), device busy {st['busy']:.1%} of the wall time, peak"
+              f" {st['peak_gib']:.2f} GiB, put {st['put_ms_per_batch']:.2f} ms and"
+              f" {st['bytes_per_batch'] / 1e6:.1f} MB per batch; reads {st['reads']}; {card}")
         print(f"    {mode} main thread, share of the wall time: waiting for decoded batches"
               f" {host['decode_wait']:.1%}, put {host['put']:.1%}, dispatch"
               f" {host['dispatch']:.1%}, the rest (fetching probabilities, CSV rows)"
@@ -455,8 +554,10 @@ def slide_phase(check, kernels, card, rng, side: int = SLIDE_PX) -> dict:
         check(bool(np.isfinite(p).all()) and dsum <= 1e-5,
               f"{mode}: every row finite, sums to 1 within {dsum:.3g} (<= 1e-5)")
         check(counts[mode]["window_attention"] == 0, f"{mode}: K2 launches 0")
-        del engine
-        torch.cuda.empty_cache()
+        want_reads = {"native": n, "python": 0} if jpeg else {"native": 0, "python": n}
+        check(st["reads"] == want_reads,
+              f"{mode}: reads over the slide {st['reads']} ({want_reads}:"
+              f" {'every patch native' if jpeg else 'no libjpeg, every JPEG patch in Python'})")
     err = float(np.abs(probs["bf16"] - probs["parity"]).max())
     check(err <= 0.01, f"bf16 vs parity over the slide's {n} patches: max |dp| {err:.3g} (<= 0.01)")
     check(counts["bf16"]["fused_preprocess"] == n_batches,
@@ -466,14 +567,74 @@ def slide_phase(check, kernels, card, rng, side: int = SLIDE_PX) -> dict:
     src = PatchBatchSource.from_coords(path, plan.coords[:8], ps, 8, num_threads=workers)
     batch = next(iter(src))
     src.close()
-    cpu = ClassifierEngine(handle, device="cpu").run_batch(batch.images, 8)
-    err = float(np.abs(probs["parity"][:8] - cpu).max())
+    cpu = ClassifierEngine(handle, device="cpu")
+    err = float(np.abs(probs["parity"][:8] - cpu.run_batch(batch.images, 8)).max())
     check(err <= 1e-3, f"parity on the card vs the CPU, the slide's first 8 patches through the"
           f" same source: max |dp| {err:.3g} (<= 1e-3)")
     print(f"    {_smi('clocks.sm,power.draw,temperature.gpu')} (SM clock, power, temperature)")
+    k1_launches = counts["bf16"]["fused_preprocess"]
+
+    # (k) ------------------------------------------------------------------
+    from wsinsight_tpu_torch.ops.stain import estimate_stains_from_batch
+
+    t_k = time.perf_counter()
+    print(f"(k) the fast input on the same slide and plan ({n} patches, {workers} decode"
+          f" thread(s)); {card}")
+    resized = TransformSpec.from_config(cfg.transform).size  # as run_inference passes it
+    runs = (("bf16", "yuv420 wire + DCT half decode", dict(wire="yuv420", decode_scale=2)),
+            ("bf16", "host resize, RGB wire", dict(host_resize=resized)),
+            ("parity", "host resize, RGB wire", dict(host_resize=resized)))
+    fast = {}
+    for mode, what, opts in runs:
+        engine = engines[mode]
+        _, p, st = run_slide(engine, kernels, path, plan.coords, ps, workers, **opts)
+        fast[f"{mode} {what}"] = st
+        print(f"    {mode}, {what}: shipped {st['wire']} at {st['image_hw'][0]} px (decode scale"
+              f" 1/{st['decode_scale']}): {st['patches_s']:.1f} patches/s, device busy"
+              f" {st['busy']:.1%}, put {st['put_ms_per_batch']:.2f} ms and"
+              f" {st['bytes_per_batch'] / 1e6:.2f} MB per batch, peak {st['peak_gib']:.2f} GiB;"
+              f" reads {st['reads']}; {card}")
+        dsum = float(np.abs(p.sum(axis=1) - 1.0).max())
+        check(p.shape == (n, 2) and bool(np.isfinite(p).all()) and dsum <= 1e-5,
+              f"(k) {mode}, {what}: rows finite, sum to 1 within {dsum:.3g}")
+        if mode == "bf16":
+            k1_launches += st["launches"]["fused_preprocess"]
+            check(st["launches"]["fused_preprocess"] == n_batches,
+                  f"(k) {mode}, {what}: K1 launches {st['launches']['fused_preprocess']}"
+                  f" (batches: {n_batches})")
+            d = np.abs(p - probs["bf16"])
+            agree = float((p.argmax(1) == probs["bf16"].argmax(1)).mean())
+            st["vs_exact_bf16"] = {"max_abs_dp": float(d.max()), "argmax_agree": agree}
+            print(f"        against (j)'s bf16 run on the exact RGB wire (lossy by contract, not"
+                  f" checked): max |dp| {float(d.max()):.3g}, argmax agrees on {agree:.2%}")
+        else:
+            err = float(np.abs(p - probs["parity"]).max())
+            check(err <= 1e-6, f"(k) parity with the host resize vs (j)'s parity run (device"
+                  f" resize): max |dp| {err:.3g} (<= 1e-6)")
+    src = PatchBatchSource.from_coords(path, plan.coords[:8], ps, 8, num_threads=workers,
+                                       wire="yuv420", decode_scale=2)
+    packed = next(iter(src)).images
+    src.close()
+    err = float(np.abs(engines["parity"].run_batch(packed, 8) - cpu.run_batch(packed, 8)).max())
+    check(packed.ndim == 3 and err <= 1e-3, f"(k) the packed fast input {packed.shape}, parity on"
+          f" the card vs the CPU: max |dp| {err:.3g} (<= 1e-3)")
+    src = PatchBatchSource.from_coords(path, plan.coords, ps, BATCH, num_threads=cores,
+                                       shuffle_seed=0)
+    sample = next(iter(src))
+    src.close()
+    w_card = estimate_stains_from_batch(sample.images[: sample.n_valid], device="cuda")
+    w_cpu = estimate_stains_from_batch(sample.images[: sample.n_valid], device="cpu")
+    err = float(np.abs(w_card - w_cpu).max())
+    check(bool(np.isfinite(w_card).all()) and err <= 1e-4, f"(k) Macenko stain estimate of a"
+          f" {sample.n_valid}-patch sample, card vs CPU: max |d| {err:.3g} (<= 1e-4)")
+    stats["fast_input"] = fast
+    print(f"    (k) took {time.perf_counter() - t_k:.1f} s;"
+          f" {_smi('clocks.sm,power.draw,temperature.gpu')} (SM clock, power, temperature)")
+    del engines, cpu
+    torch.cuda.empty_cache()
     tmp.cleanup()
     tmp_model.cleanup()
-    return {"stats": stats, "launches": counts["bf16"]}
+    return {"stats": stats, "k1_launches": k1_launches}
 
 
 def main() -> int:
@@ -483,9 +644,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    try:
+        import wsinsight_tpu_torch  # noqa: F401
+    except ImportError as err:
+        print(f"chip_smoke: the port's package is not importable ({err}); run the script from"
+              " the root of a checkout of the repository", file=sys.stderr)
+        return 1
+    from wsinsight_tpu_torch import native
     from wsinsight_tpu_torch.engine import CellEngine, ClassifierEngine, TileRemapStitcher
     from wsinsight_tpu_torch.ops.flash_attn import window_attention, window_attention_reference
-    from wsinsight_tpu_torch.ops import cuda_build
+    from wsinsight_tpu_torch.ops import cuda_build, native_build
     from wsinsight_tpu_torch.ops.fused_preprocess import (
         fused_preprocess,
         fused_preprocess_reference,
@@ -505,12 +673,36 @@ def main() -> int:
     kernels = {fused_preprocess: "fused_preprocess", window_attention: "window_attention"}
 
     # (b) ------------------------------------------------------------------
+    def build_host():  # runs beside nvcc
+        start = time.perf_counter()
+        jpeg = native_build.jpeg_available()
+        log = native_build.build()
+        return jpeg, log, time.perf_counter() - start
+
     t0 = time.perf_counter()
-    logs = cuda_build.build()
-    print(f"(b) built {len(logs)} kernel source(s) in {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(build_host)
+        logs = cuda_build.build()
+        kernel_s = time.perf_counter() - t0
+        jpeg, host_log, host_s = host.result()
+    print(f"(b) built {len(logs)} kernel source(s) in {kernel_s:.2f} s")
     for name, log in logs.items():
         for line in cuda_build.ptxas_summary(log):
             print(f"    {name}: {line}")
+    lib_path = native_build.library_path()
+    print(f"    host library: {' '.join(native_build.command(lib_path))}: {host_s:.2f} s"
+          f" (probe and build, beside nvcc); libjpeg {'found' if jpeg else 'NOT found'}")
+    for line in host_log.strip().splitlines():
+        print(f"    g++: {line}")
+    ldd = subprocess.run(["ldd", str(lib_path)], capture_output=True, text=True, timeout=60)
+    linked = [ln.strip() for ln in ldd.stdout.splitlines() if "jpeg" in ln or "libz." in ln]
+    print(f"    linked: {'; '.join(linked) or ldd.stdout.strip()}")
+    check(native.has_jpeg() == jpeg, f"host library loads; its JPEG codec is"
+          f" {'in' if jpeg else 'left out (-DWSI_NO_JPEG)'}")
+    if not jpeg:
+        print("    no libjpeg on this machine: the native reader declines JPEG pages, and the"
+              " JPEG slide of (j) and (k) decodes through the Python tile path (cv2); the"
+              " lossless twin of (j) decodes natively")
 
     # (c) ------------------------------------------------------------------
     handle = get_registered_model(MODEL)
@@ -521,8 +713,9 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     print(f"(c) K1 vs its plain version ({MODEL} mean/std)")
     max_abs_err = 0.0
-    for b, h, oh, skip in ((BATCH, 350, 224, 0), (BATCH, 175, 224, 0), (BATCH, 350, 299, 0),
-                           (3, 97, 64, 0), (BATCH + 1, 350, 224, 1)):
+    for b, h, oh, skip in ((BATCH, 350, 224, 0), (BATCH, 175, 224, 0), (BATCH, 176, 224, 0),
+                           (BATCH, 224, 224, 0), (BATCH, 350, 299, 0), (3, 97, 64, 0),
+                           (BATCH + 1, 350, 224, 1)):
         # skip=1: x[1:] of a contiguous batch, whose first image is not 16-byte aligned
         x = torch.from_numpy(rng.integers(0, 256, (b, h, h, 3), dtype=np.uint8)).to(dev)[skip:]
         for dt in (torch.float32, torch.bfloat16):
@@ -777,7 +970,7 @@ def main() -> int:
         "route": "cuda",
         "source": "wsinsight_tpu_torch/ops/csrc/fused_preprocess.cu",
         "replaces": "wsinsight_tpu/ops/pallas_preprocess.py:38",
-        "launches": launches["fused_preprocess"] + slide["launches"]["fused_preprocess"],
+        "launches": launches["fused_preprocess"] + slide["k1_launches"],
         "max_abs_err": max_abs_err,
         "ms": k1_main["ms"],
         "plain_ms": k1_main["plain_ms"],

@@ -140,13 +140,8 @@ def test_device_rule(two_class, monkeypatch):
 
 @pytest.mark.parametrize(
     "env,kwargs",
-    [
-        (None, dict(w_est=np.eye(3), w_def=np.eye(3))),
-        (("WSINSIGHT_WIRE", "yuv420"), {}),
-        (("WSINSIGHT_HOST_RESIZE", "1"), {}),
-        (("WSINSIGHT_PRECISION", "float32"), {}),
-    ],
-    ids=["stain", "yuv420", "host-resize", "precision"],
+    [(("WSINSIGHT_PRECISION", "float32"), {})],
+    ids=["precision"],
 )
 def test_unported_options_raise(two_class, monkeypatch, env, kwargs):
     if env:
@@ -156,6 +151,71 @@ def test_unported_options_raise(two_class, monkeypatch, env, kwargs):
 
 
 def test_set_stains_raises(two_class):
+    """An engine built without stain matrices has no stain branch to swap."""
     engine = ClassifierEngine(load_local_model(*two_class), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="without stain normalization"):
         engine.set_stains(np.eye(3), np.eye(3))
+
+
+def _tones(n=4, side=96, seed=0):
+    """H&E tones in 8 px blocks with noise: patches whose stains estimate."""
+    rng = np.random.default_rng(seed)
+    tones = np.array(((176, 98, 168), (214, 132, 186), (150, 80, 160), (236, 236, 236)))
+    labels = rng.integers(0, len(tones), (n, side // 8, side // 8))
+    img = tones[np.kron(labels, np.ones((1, 8, 8), int))]
+    return np.clip(img + rng.integers(-17, 18, img.shape), 0, 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("option", ["yuv420", "host-resize", "stain"])
+@pytest.mark.parametrize("mode,atol", [("parity", 2e-4), ("mixed", 0.01)])
+def test_input_options_match_jax(two_class, option, mode, atol):
+    """The classifier's input options through both engines, the same inputs:
+    the YUV 4:2:0 wire (a rank-3 batch), a batch resized on the host, and
+    stain normalization with one estimated matrix. Parity within 2e-4."""
+    from wsinsight_tpu_torch.native import pil_resize_native, rgb_to_yuv420
+    from wsinsight_tpu_torch.ops.stain import default_target_stains, estimate_stains_from_batch
+
+    images = _tones(seed=1)
+    kwargs = {}
+    if option == "yuv420":
+        images = rgb_to_yuv420(images)
+        assert images.shape == (4, 144, 96)
+    elif option == "host-resize":
+        images = pil_resize_native(images, (64, 64))
+    else:
+        kwargs = dict(w_est=estimate_stains_from_batch(_tones(seed=2)),
+                      w_def=default_target_stains())
+    mixed = mode == "mixed"
+    ours = ClassifierEngine(load_local_model(*two_class), mixed_precision=mixed, device="cpu",
+                            **kwargs)
+    theirs = JaxEngine(jax_load_local(*two_class), mixed_precision=mixed, max_devices=1, **kwargs)
+    got, want = ours.run_batch(images, 4), theirs.run_batch(images, 4)
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+    plain = ClassifierEngine(load_local_model(*two_class), mixed_precision=mixed,
+                             device="cpu").run_batch(_tones(seed=1), 4)
+    if option == "host-resize" and not mixed:  # the device's resize is PIL's
+        np.testing.assert_array_equal(got, plain)
+    elif option != "host-resize":
+        assert np.abs(got - plain).max() > 1e-6  # the option did act
+
+
+def test_set_stains_swaps_matrices(two_class):
+    """set_stains changes the step's matrices and nothing else: the same as
+    an engine built with the new matrices, and as the JAX engine's swap."""
+    from wsinsight_tpu_torch.ops.stain import default_target_stains, estimate_stains_from_batch
+
+    w_def = default_target_stains()
+    w_a, w_b = (estimate_stains_from_batch(_tones(seed=s)) for s in (3, 4))
+    images = _tones(seed=5)
+    engine = ClassifierEngine(load_local_model(*two_class), w_est=w_a, w_def=w_def, device="cpu")
+    model = engine.model
+    first = engine.run_batch(images, 4)
+    engine.set_stains(w_b, w_def)
+    assert engine.model is model
+    fresh = ClassifierEngine(load_local_model(*two_class), w_est=w_b, w_def=w_def, device="cpu")
+    np.testing.assert_array_equal(engine.run_batch(images, 4), fresh.run_batch(images, 4))
+    theirs = JaxEngine(jax_load_local(*two_class), w_est=w_a, w_def=w_def, max_devices=1)
+    theirs.set_stains(w_b, w_def)
+    np.testing.assert_allclose(engine.run_batch(images, 4), theirs.run_batch(images, 4),
+                               rtol=0, atol=2e-4)
+    assert np.abs(first - fresh.run_batch(images, 4)).max() > 1e-6

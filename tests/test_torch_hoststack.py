@@ -2,14 +2,12 @@
 
 The same inputs, made from a numpy seed, go through each JAX module and its
 copy in the port: tissue segmentation, the patch grid, the TIFF writer and
-reader, the patch file, ``PatchBatchSource`` and ``plan_slide``. Then the
-options the port refuses, each naming the ROADMAP.md item it waits for.
+reader, the patch file, ``PatchBatchSource`` (with its input options) and
+``plan_slide``. Then the options the port refuses, each naming the ROADMAP.md
+item it waits for.
 
-The JAX reader decodes regions with its native (C++) reader where that is
-built; the port has only the Python tile path. Lossless pages must agree
-with either; JPEG pages are compared with the JAX reader's Python path
-(``_native`` set to False for every level, as tests/test_native_decode.py
-does), since two JPEG decoders may differ by a level.
+Both readers decode regions with their native (C++) reader, the same source
+in each package, so JPEG pages too must agree byte for byte.
 """
 
 import numpy as np
@@ -125,12 +123,10 @@ def test_reader_matches_jax(slides, compression, level):
 
     path = str(slides[compression])
     with TpuSlide(path) as s, JaxSlide(path) as j:
-        if compression == "jpeg":  # the JAX reader's Python decode
-            j._native = {lvl: False for lvl in range(j.level_count)}
         assert s.level_dimensions == j.level_dimensions
         assert s.level_downsamples == j.level_downsamples
         assert s.properties == j.properties
-        assert not hasattr(s, "read_patches_array")
+        assert s.has_native(level)
         for x, y, w, h in REGIONS:
             got = s.read_region_array((x, y), level, (w, h))
             np.testing.assert_array_equal(got, j.read_region_array((x, y), level, (w, h)))
@@ -139,6 +135,8 @@ def test_reader_matches_jax(slides, compression, level):
         thumb = np.asarray(s.get_thumbnail((300 * (level + 1), 200 * (level + 1))))
         want = np.asarray(j.get_thumbnail((300 * (level + 1), 200 * (level + 1))))
         np.testing.assert_array_equal(thumb, want)
+        # each region twice (array and PIL); the last lies wholly outside
+        assert s.reads == {"native": 2 * (len(REGIONS) - 1), "python": 0}
 
 
 def test_avg_mpp_and_directory_checks(slides, tmp_path):
@@ -327,17 +325,49 @@ def test_read_patch_coords_rejects_bad_files(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(host_resize=(224, 224)), 5),
-    (dict(wire="yuv420"), 5),
-    (dict(decode_scale=2), 5),
+@pytest.mark.parametrize("compression,kwargs,image_hw,shape", [
+    ("deflate", dict(host_resize=(224, 224)), (224, 224), (224, 224, 3)),
+    ("deflate", dict(wire="yuv420"), (350, 350), (525, 350)),
+    ("jpeg", dict(wire="yuv420", decode_scale=2), (176, 176), (264, 176)),
 ])
-def test_source_refuses_unported_options(patch_files, kwargs, item):
-    from wsinsight_tpu_torch.engine.data import PatchBatchSource
+def test_source_input_options_match_jax(slides, compression, kwargs, image_hw, shape):
+    """Host resize, the YUV 4:2:0 wire and the DCT half decode: the port's
+    source gives the JAX source's batches byte for byte (both decode with
+    their native reader and resize and pack with the same C++), through the
+    native whole-batch path (no Python reads)."""
+    from wsinsight_tpu.engine.data import PatchBatchSource as JaxSource
+    from wsinsight_tpu.patchlib import segment_and_patch_one_slide as jax_patch
+    from wsinsight_tpu.uri_path import URIPath as JaxURIPath
+    from wsinsight_tpu_torch.engine.data import PatchBatchSource, read_patch_coords
 
-    h5 = patch_files["port"] / "patches" / "tissue_deflate.h5"
-    with pytest.raises(NotImplementedError, match=f"Queue 1, item {item}"):
-        PatchBatchSource(None, h5, False, **kwargs)
+    plan = _plan(slides[compression])
+    src = PatchBatchSource.from_coords(str(slides[compression]), plan.coords, 350,
+                                       batch_size=8, num_threads=3, **kwargs)
+    assert src.image_hw == image_hw
+    assert src.decode_scale == kwargs.get("decode_scale", 1)
+    assert src.wire == kwargs.get("wire")
+    reads = src._slide.reads
+    got = _batches(src)
+    assert reads["python"] == 0 and reads["native"] >= len(plan.coords)
+
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        jax_patch(slide_path=JaxURIPath(str(slides[compression])), save_dir=JaxURIPath(d),
+                  qupath_detection_dir=None, qupath_geojson_detection_dir=None,
+                  qupath_geojson_annotation_dir=None, patch_size_px=350,
+                  patch_spacing_um_px=0.25, thumbsize=(1024, 1024),
+                  min_object_size_um2=50**2, min_hole_size_um2=10**2)
+        h5 = f"{d}/patches/tissue_{compression}.h5"
+        np.testing.assert_array_equal(read_patch_coords(h5)[0][:, :2], plan.coords)
+        want = _batches(JaxSource(str(slides[compression]), h5, False, batch_size=8,
+                                  num_threads=3, **kwargs))
+    assert len(got) == len(want) == -(-len(plan.coords) // 8)
+    for a, b in zip(got, want):
+        assert a.images.shape == b.images.shape == (8, *shape)
+        assert a.n_valid == b.n_valid
+        np.testing.assert_array_equal(a.coords, b.coords)
+        np.testing.assert_array_equal(a.images, b.images)
 
 
 @pytest.mark.parametrize("opts,item", [
@@ -362,7 +392,6 @@ def test_plan_slide_refuses_unported_planners(slides, opts, item):
     (dict(qupath_detection_dir="q"), 4),
     (dict(qupath_geojson_annotation_dir="q"), 4),
     (dict(object_based=True, object_detection="end2end"), 2),
-    (dict(stain_normalization=True), 5),
     (dict(object_based=True, references_dir="r"), 4),
 ])
 def test_run_inference_refuses_unported_branches(tmp_path, kwargs, item):
@@ -386,7 +415,7 @@ def test_profile_env_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("args,item", [
-    (["--geojson"], 4), (["--omecsv"], 4), (["--fast-input"], 5), (["--hplot"], 9),
+    (["--geojson"], 4), (["--omecsv"], 4), (["--hplot"], 9),
     (["--cme-cellular"], 9), (["--qupath"], 4), (["--qupath-detection-dir", "."], 4),
 ])
 def test_cli_refuses_unported_options(slides, tmp_path, args, item):

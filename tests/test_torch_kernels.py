@@ -51,8 +51,9 @@ def _batch(b, h, seed=0):
 
 
 # K1's resizes: the zoo's (350 -> 224, 350 -> 299, 175 -> 224, and the
-# identities 224, 100, 96), an odd downscale, and bands of 10 and 8 taps.
-K1_SHAPES = [(350, 224), (350, 299), (175, 224), (224, 224), (100, 100), (96, 96),
+# identities 224, 100, 96), the fast input's 176 -> 224 (a DCT half-decoded
+# 350 px patch, rounded even), an odd downscale, and bands of 10 and 8 taps.
+K1_SHAPES = [(350, 224), (350, 299), (175, 224), (176, 224), (224, 224), (100, 100), (96, 96),
              (97, 64), (1024, 224), (350, 96)]
 
 
@@ -244,8 +245,9 @@ def test_padded_taps_add_exact_zero(h, oh):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("in_size,out_size", [(350, 224), (175, 224), (350, 299), (224, 224),
-                                              (96, 96), (97, 64), (1024, 224), (1024, 40)])
+@pytest.mark.parametrize("in_size,out_size", [(350, 224), (175, 224), (176, 224), (350, 299),
+                                              (224, 224), (96, 96), (97, 64), (1024, 224),
+                                              (1024, 40)])
 @pytest.mark.parametrize("b", [1, 3, 8])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_matches_plain_version(cuda_device, in_size, out_size, b, dtype):

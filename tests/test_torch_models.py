@@ -163,6 +163,8 @@ PORT_MODULES = (
     "patchlib.segment", "patchlib.patch", "patchlib.io", "patchlib.pipeline",
     "utils.workers", "utils.metadata", "utils.profiling", "engine.data", "cli._options",
     "cli.patch", "cli.infer", "cli.run", "cli.cli", "__main__", "_version",
+    # the host library and the classifier's input options
+    "native", "ops.native_build", "ops.stain",
 )
 
 

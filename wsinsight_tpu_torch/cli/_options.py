@@ -234,7 +234,6 @@ _UNPORTED_OPTIONS = (
     ("geojson", 4),
     ("omecsv", 4),
     ("qupath", 4),
-    ("fast_input", 5),
     ("hplot", 9),
     ("cme_cellular", 9),
     ("cme_annotation", 9),
@@ -262,12 +261,9 @@ def require_h5py() -> None:
 
 def refuse_unported_model(flags: dict) -> None:
     """click.UsageError for a model whose path the port does not have: cell
-    models (end2end, item 2; StarDist pre-detection, item 7) and stain
-    normalization (item 5)."""
+    models (end2end, item 2; StarDist pre-detection, item 7)."""
     if flags["object_based"]:
         od = flags["object_detection"]
         raise click.UsageError(
             not_ported(f"object-based models (object_detection={od!r})", 2 if od == "end2end" else 7)
         )
-    if flags["stain_normalization"]:
-        raise click.UsageError(not_ported("stain normalization", 5))

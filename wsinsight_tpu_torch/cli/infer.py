@@ -6,10 +6,10 @@ registered models, and analytics receive the actual slide list instead of a
 variable bound only in QuPath branches.
 
 Counterpart of wsinsight_tpu/cli/infer.py, with the same options. The port
-runs patch classification into the model-output CSVs; the exporters, QuPath
-pseudo-models, --fast-input, the analytics and object-based models raise
-``click.UsageError`` naming their ROADMAP.md item (``_options``). Reading
-the patch files needs h5py.
+runs patch classification into the model-output CSVs, with --fast-input and
+stain-normalized models; the exporters, QuPath pseudo-models, the analytics
+and object-based models raise ``click.UsageError`` naming their ROADMAP.md
+item (``_options``). Reading the patch files needs h5py.
 """
 
 from __future__ import annotations
@@ -200,21 +200,40 @@ def infer(
         )
 
     click.secho("\nRunning model inference.\n", fg="green")
-    failed_patching, failed_inference = run_inference(
-        wsi_dir=wsi_dir,
-        slide_paths=slide_paths,
-        results_dir=results_dir,
-        references_dir=references_dir,
-        model_info=model_obj,
-        halo_size_px=flags["halo_size_px"],
-        batch_size=batch_size,
-        num_workers=num_workers,
-        stain_normalization=flags["stain_normalization"],
-        object_based=flags["object_based"],
-        object_detection=flags["object_detection"],
-        mixed_precision=flags["mixed_precision"] or speedup,
-        stitch_workers=stitch_workers,
-    )
+    # --fast-input maps onto the engine's environment options (read per
+    # slide, so setting them here covers ctx.invoke from `run` too), restored
+    # afterwards so one invocation cannot leak into the next.
+    fast_saved: dict[str, str | None] = {}
+    if fast_input:
+        for k, v in (
+            ("WSINSIGHT_WIRE", "yuv420"),
+            ("WSINSIGHT_DECODE_SCALE", "2"),
+            ("WSINSIGHT_HOST_RESIZE", "1"),
+        ):
+            fast_saved[k] = os.environ.get(k)
+            os.environ[k] = v
+    try:
+        failed_patching, failed_inference = run_inference(
+            wsi_dir=wsi_dir,
+            slide_paths=slide_paths,
+            results_dir=results_dir,
+            references_dir=references_dir,
+            model_info=model_obj,
+            halo_size_px=flags["halo_size_px"],
+            batch_size=batch_size,
+            num_workers=num_workers,
+            stain_normalization=flags["stain_normalization"],
+            object_based=flags["object_based"],
+            object_detection=flags["object_detection"],
+            mixed_precision=flags["mixed_precision"] or speedup,
+            stitch_workers=stitch_workers,
+        )
+    finally:
+        for k, old in fast_saved.items():
+            if old is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = old
 
     if failed_patching:
         click.secho(f"\nPatching failed for {len(failed_patching)} slides", fg="yellow")

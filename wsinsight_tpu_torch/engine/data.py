@@ -4,22 +4,25 @@ Replaces the reference's torch Dataset + DataLoader worker processes (reference:
 wsinsight/modellib/data.py:149-314, run_inference.py:288-299). Differences by
 design:
 
-* patches are decoded by a thread pool into numpy batches (the in-house TIFF
-  reader releases the GIL inside zlib/cv2, so threads scale without the
+* patches are decoded by a thread pool into numpy batches (the native reader
+  decodes a shard of a batch per call with the GIL released, and the Python
+  tile path releases it inside zlib/cv2, so threads scale without the
   spawn/pickle overhead of worker processes),
 * transform math (resize/normalize) moves to the card (ops/preprocess.py and
   kernel K1), so workers only decode uint8 pixels,
 * the final batch is padded to full batch size with a validity count, so the
   forward sees one shape.
 
-Counterpart of wsinsight_tpu/engine/data.py. Every patch decodes through the
-slide's ``read_region_array`` (the JAX package's per-patch path): the native
-whole-batch reader is not ported, and this source does not look for it. The
-options that wait for ROADMAP.md Queue 1 item 5 (``host_resize``,
-``wire="yuv420"``, ``decode_scale=2``) raise. ``PatchBatchSource.from_coords``
-takes the coordinates in memory; the HDF5 constructor reads them from a patch
-file and then runs the same code. ``h5py`` is imported only where a patch file
-is read.
+Counterpart of wsinsight_tpu/engine/data.py. A batch decodes in one native
+call per shard where the slide's level has a native reader
+(``TpuSlide.has_native``), and per patch through ``read_region_array``
+otherwise; the slide's ``reads`` counts which. The input options are the JAX
+source's: ``host_resize`` (PIL-exact resize in the decode threads),
+``wire="yuv420"`` (batches packed as planar YUV 4:2:0, rank 3) and
+``decode_scale=2`` (DCT half-resolution decode of JPEG pages, with the YUV
+wire). ``PatchBatchSource.from_coords`` takes the coordinates in memory; the
+HDF5 constructor reads them from a patch file and then runs the same code.
+``h5py`` is imported only where a patch file is read.
 """
 
 from __future__ import annotations
@@ -34,7 +37,6 @@ from typing import Iterator
 import numpy as np
 import numpy.typing as npt
 
-from ..errors import not_ported
 from ..uri_path import URIPath
 from ..wsi import get_wsi_cls
 
@@ -72,20 +74,10 @@ def _with_size(coords: npt.NDArray[np.int_], patch_size: int) -> npt.NDArray[np.
     return np.concatenate((coords, np.full_like(coords, patch_size)), axis=1)
 
 
-def _refuse_unported(host_resize, wire, decode_scale) -> None:
-    if host_resize is not None:
-        raise NotImplementedError(not_ported("host_resize (WSINSIGHT_HOST_RESIZE)", 5))
-    if wire is not None:
-        raise NotImplementedError(not_ported(f"wire={wire!r} (WSINSIGHT_WIRE)", 5))
-    if decode_scale is None:
-        decode_scale = os.getenv("WSINSIGHT_DECODE_SCALE", "1") or "1"
-    if str(decode_scale) != "1":
-        raise NotImplementedError(not_ported(f"decode_scale={decode_scale} (WSINSIGHT_DECODE_SCALE)", 5))
-
-
 @dataclass
 class Batch:
-    images: npt.NDArray[np.uint8]  # (B, P, P, 3), zero-padded past n_valid
+    # (B, H, W, 3), or (B, H*3/2, W) on the YUV 4:2:0 wire; zero-padded past n_valid
+    images: npt.NDArray[np.uint8]
     coords: npt.NDArray[np.int64]  # (B, 4)
     n_valid: int
 
@@ -109,14 +101,14 @@ class PatchBatchSource:
     ):
         """The source of one slide's patch file (``/coords``, and ``/images``
         when ``use_hdf5_images`` and the file has them)."""
-        _refuse_unported(host_resize, wire, decode_scale)
         coords, tile_dim, patch_size = read_patch_coords(
             patch_path.materialize() if isinstance(patch_path, URIPath) else patch_path
         )
         if coords.size == 0:
             raise ValueError(f"No patches were found in {patch_path}")
         self._setup(wsi_path, patch_path, coords, tile_dim, patch_size, use_hdf5_images,
-                    batch_size, num_threads, prefetch, shuffle_seed, order_by_y)
+                    batch_size, num_threads, prefetch, shuffle_seed, order_by_y,
+                    host_resize, wire, decode_scale)
 
     @classmethod
     def from_coords(
@@ -130,6 +122,9 @@ class PatchBatchSource:
         shuffle_seed: int | None = None,
         order_by_y: bool = False,
         tile_dim: npt.NDArray[np.int_] | None = None,
+        host_resize: tuple[int, int] | None = None,
+        wire: str | None = None,
+        decode_scale: int | None = None,
     ) -> "PatchBatchSource":
         """The source of a plan held in memory: (N, 2) top-left level-0
         ``coords`` (a ``PatchPlan``'s) of ``patch_size`` px patches, decoded
@@ -140,11 +135,12 @@ class PatchBatchSource:
         src = cls.__new__(cls)
         src._setup(wsi_path, None, _with_size(coords, int(patch_size)), tile_dim,
                    int(patch_size), False, batch_size, num_threads, prefetch,
-                   shuffle_seed, order_by_y)
+                   shuffle_seed, order_by_y, host_resize, wire, decode_scale)
         return src
 
     def _setup(self, wsi_path, patch_path, coords, tile_dim, patch_size, use_hdf5_images,
-               batch_size, num_threads, prefetch, shuffle_seed, order_by_y) -> None:
+               batch_size, num_threads, prefetch, shuffle_seed, order_by_y,
+               host_resize, wire, decode_scale) -> None:
         self.patch_path = patch_path
         self.wsi_path = wsi_path
         self.batch_size = batch_size
@@ -159,6 +155,31 @@ class PatchBatchSource:
             # banded/streaming consumers need patches in slide-row order
             self._order = np.lexsort((self.coords[:, 0], self.coords[:, 1]))
 
+        # Optional decode-thread resize (PIL bilinear, the reference's own
+        # CPU transform, torchvision Resize on PIL images). Only applied when
+        # it shrinks the patch: the point is to cut host->device bytes on
+        # hosts with a thin transfer link (WSINSIGHT_HOST_RESIZE=1); an
+        # upscale would inflate them. The device's exact resize reproduces
+        # PIL bit for bit, so moving the resize here changes where the work
+        # runs, not the numbers.
+        self._host_resize: tuple[int, int] | None = None
+        if host_resize is not None:
+            oh, ow = int(host_resize[0]), int(host_resize[1])
+            if oh * ow < int(self.patch_size) ** 2:
+                self._host_resize = (oh, ow)
+
+        # Optional thin-link wire format: batches packed as planar YUV 4:2:0
+        # (1.5 B/px against RGB's 3 B/px), for hosts whose device link bounds
+        # the pipeline (WSINSIGHT_WIRE=yuv420). The engine's step rebuilds
+        # RGB on the device (ops/preprocess.yuv420_to_rgb, chosen by the
+        # batch's rank). Lossy in chroma, so opt-in; it needs even H and W,
+        # otherwise this source stays on the exact RGB wire.
+        self._wire = None
+        if wire == "yuv420":
+            ih, iw = self._host_resize or (int(self.patch_size), int(self.patch_size))
+            if ih % 2 == 0 and iw % 2 == 0:
+                self._wire = "yuv420"
+
         self._use_hdf5_images = use_hdf5_images
         self._h5 = None
         self._images = None
@@ -169,6 +190,47 @@ class PatchBatchSource:
         self._stop = threading.Event()
         self._producers: list[threading.Thread] = []
         self._open_sources()
+
+        # Optional DCT half-resolution decode (WSINSIGHT_DECODE_SCALE=2, JPEG
+        # pages and the YUV wire only): the native reader decodes tiles at
+        # 1/2 through a 4x4 IDCT (a quarter of the pixels) and the wire ships
+        # (ceil(ps/2) rounded even)^2 planes; the device preprocess resizes
+        # from there. Lossy (DCT downsample and the wire's chroma), so opt-in.
+        # Where the page is not JPEG, or has no native reader (a build without
+        # libjpeg), the probe finds no half-scale reader and the source stays
+        # at full resolution; ``decode_scale`` says which ran.
+        self._decode_scale = 1
+        self._half = None
+        if decode_scale is None:
+            try:
+                decode_scale = int(os.getenv("WSINSIGHT_DECODE_SCALE", "1") or 1)
+            except ValueError:
+                decode_scale = 1
+        if (
+            decode_scale == 2
+            and self._wire == "yuv420"
+            and not self._use_hdf5_images
+            and getattr(self._slide, "has_native", None) is not None
+            and self._slide.has_native(0, 2)
+        ):
+            hs = -(-int(self.patch_size) // 2)
+            hs += hs % 2  # even, for the YUV packer
+            probe = self._slide.read_patches_array(self.coords[:1, :2], 0, (hs, hs),
+                                                   scale_denom=2)
+            if probe is not None:
+                self._decode_scale = 2
+                self._half = (hs, hs)
+                self._host_resize = None  # decode already shrank the patch
+
+    @property
+    def decode_scale(self) -> int:
+        """1, or 2 where the DCT half-resolution decode runs."""
+        return self._decode_scale
+
+    @property
+    def wire(self) -> str | None:
+        """"yuv420" where batches ship packed, else None (RGB)."""
+        return self._wire
 
     def _open_sources(self) -> None:
         if self._use_hdf5_images:
@@ -229,36 +291,153 @@ class PatchBatchSource:
                     arr = self._images[idx]
             if arr.shape[0] == 3 and arr.shape[-1] != 3:
                 arr = np.transpose(arr, (1, 2, 0))
-            return np.ascontiguousarray(arr[:, :, :3], dtype=np.uint8)
+            arr = np.ascontiguousarray(arr[:, :, :3], dtype=np.uint8)
+            return self._maybe_resize(arr)
         minx, miny, w, h = self.coords[idx]
+        if self._decode_scale == 2:
+            # The half-scale mode after a native decode error: read the
+            # even-snapped full-resolution window and area-downsample it, an
+            # antialiased 2x reduction like the DCT half decode (the mode is
+            # lossy by contract).
+            import cv2
+
+            hs = self._half[0]
+            arr = self._slide.read_region_array(
+                (int(minx) & ~1, int(miny) & ~1), 0, (2 * hs, 2 * hs)
+            )
+            return cv2.resize(arr, (hs, hs), interpolation=cv2.INTER_AREA)
         fast = getattr(self._slide, "read_region_array", None)
         if fast is not None:
-            return fast((int(minx), int(miny)), 0, (int(w), int(h)))
+            return self._maybe_resize(fast((int(minx), int(miny)), 0, (int(w), int(h))))
         region = self._slide.read_region(
             location=(int(minx), int(miny)), level=0, size=(int(w), int(h))
         )
-        return np.asarray(region.convert("RGB"), dtype=np.uint8)
+        return self._maybe_resize(np.asarray(region.convert("RGB"), dtype=np.uint8))
+
+    def _maybe_resize(self, arr: np.ndarray) -> np.ndarray:
+        if self._host_resize is None:
+            return arr
+        from ..native import pil_resize_native
+
+        return pil_resize_native(arr, self._host_resize)
+
+    @property
+    def image_hw(self) -> tuple[int, int]:
+        """(H, W) of the images this source yields (after host resize or the
+        half-scale decode); on the YUV wire they ship as (H*3/2, W)."""
+        if self._half is not None:
+            return self._half
+        if self._host_resize is not None:
+            return self._host_resize
+        return (self.patch_size, self.patch_size)
 
     def _start_batch(self, pool: ThreadPoolExecutor, indices: np.ndarray):
         """Submit one batch's decode work; return a finish() -> Batch closure.
 
-        Splitting submit from collect lets the producer keep TWO batches in
-        flight: batch k+1's patches decode (GIL-free inside zlib/cv2) while
-        batch k is being assembled / waiting on the bounded queue, so the
-        decode pool never idles across the per-batch join barrier.
+        Splitting submit from collect lets the producer keep two batches in
+        flight: batch k+1's shards decode (GIL-free) while batch k is being
+        assembled / waiting on the bounded queue, so the decode pool never
+        idles across the per-batch join barrier.
         """
-        futures = [pool.submit(self._fetch_one, i) for i in indices]
+        native_collect = self._submit_batch_native(pool, indices)
+        futures = None
+        if native_collect is None and len(indices) > 0:
+            futures = [pool.submit(self._fetch_one, i) for i in indices]
 
         def finish() -> Batch:
-            ps = self.patch_size
-            images = np.zeros((self.batch_size, ps, ps, 3), np.uint8)
-            for slot, f in enumerate(futures):
-                images[slot] = f.result()
+            ih, iw = self.image_hw
+            native = native_collect() if native_collect is not None else None
+            if native is not None and len(indices) == self.batch_size:
+                images = native  # full batch decoded straight into its buffer
+            else:
+                shape = (
+                    (self.batch_size, ih * 3 // 2, iw)  # pre-packed shards
+                    if native is not None and native.ndim == 3
+                    else (self.batch_size, ih, iw, 3)
+                )
+                images = np.zeros(shape, np.uint8)
+                if native is not None:
+                    images[: len(indices)] = native
+                else:
+                    per_patch = (
+                        [f.result() for f in futures]
+                        if futures is not None
+                        # a shard's native decode failed mid-batch
+                        else [self._fetch_one(i) for i in indices]
+                    )
+                    for slot, arr in enumerate(per_patch):
+                        images[slot] = arr
+            if self._wire is not None and images.ndim == 4:
+                from ..native import rgb_to_yuv420
+
+                packed = rgb_to_yuv420(images)
+                if packed is not None:
+                    images = packed  # (B, H*3/2, W): halves the H2D bytes
             coords = np.zeros((self.batch_size, 4), np.int64)
             coords[: len(indices)] = self.coords[indices]
             return Batch(images=images, coords=coords, n_valid=len(indices))
 
         return finish
+
+    def _submit_batch_native(self, pool: ThreadPoolExecutor, indices: np.ndarray):
+        """Submit a whole batch's decode as GIL-free native calls, where the
+        slide's level 0 has a native reader.
+
+        The batch is sharded across the decode pool (``min(threads, n // 4)``
+        shards): each native call releases the GIL and writes its slice of
+        one contiguous buffer (decode, then the host resize and the wire
+        packing of that slice), so threads scale on multi-core hosts (the
+        shared C++ tile LRU is mutex-protected, decode runs unlocked).
+        Returns a collect() closure yielding the decoded batch, or None at
+        submit time where there is no native reader, or at collect time
+        where a shard's decode failed (the caller then decodes per patch).
+        """
+        if self._use_hdf5_images or self._slide is None:
+            return None
+        has_native = getattr(self._slide, "has_native", None)
+        if has_native is None or not has_native(0, self._decode_scale):
+            return None
+        n = len(indices)
+        if n == 0:
+            return None
+        from ..native import pil_resize_native, rgb_to_yuv420
+
+        ps = int(self.patch_size)
+        dec_scale = self._decode_scale
+        dec_hw = self._half if dec_scale == 2 else (ps, ps)
+        out = np.empty((n, dec_hw[0], dec_hw[1], 3), np.uint8)
+        coords = self.coords[indices, :2]
+        resize_to = self._host_resize
+        rgb = out
+        if resize_to is not None:
+            rgb = np.empty((n, resize_to[0], resize_to[1], 3), np.uint8)
+        final = rgb
+        if self._wire is not None:
+            # pack per shard, so the (GIL-free) conversion runs in the decode
+            # threads instead of serializing on the producer
+            final = np.empty((n, rgb.shape[1] * 3 // 2, rgb.shape[2]), np.uint8)
+
+        def shard(a: int, b: int):
+            r = self._slide.read_patches_array(
+                coords[a:b], 0, (dec_hw[1], dec_hw[0]), out[a:b], scale_denom=dec_scale
+            )
+            if r is None:
+                return None
+            if resize_to is not None:
+                pil_resize_native(out[a:b], resize_to, out=rgb[a:b])
+            if final is not rgb and rgb_to_yuv420(rgb[a:b], out=final[a:b]) is None:
+                return None
+            return True
+
+        n_shards = min(self.num_threads, max(1, n // 4))
+        bounds = np.linspace(0, n, n_shards + 1, dtype=int)
+        futures = [pool.submit(shard, a, b) for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
+
+        def collect() -> np.ndarray | None:
+            results = [f.result() for f in futures]
+            return None if any(r is None for r in results) else final
+
+        return collect
 
     def __iter__(self) -> Iterator[Batch]:
         """Yield batches; decode runs ahead of the consumer by `prefetch`."""
@@ -285,7 +464,7 @@ class PatchBatchSource:
                 from collections import deque
 
                 with ThreadPoolExecutor(max_workers=self.num_threads) as pool:
-                    # Two batches in flight: batch k+1's patches decode while
+                    # Two batches in flight: batch k+1's shards decode while
                     # batch k assembles / waits on the bounded queue.
                     pending: deque = deque()
                     for indices in splits:
@@ -342,8 +521,9 @@ class PatchBatchSource:
 
     def close(self) -> None:
         self._stop.set()
-        # Join producers BEFORE closing handles: a decode thread may still be
-        # reading the slide or the patch file.
+        # Join producers BEFORE closing handles: a decode thread still inside
+        # the native reader while close() frees it would be a use-after-free
+        # (the C++ side also pins pages per call).
         for t in self._producers:
             if t.is_alive() and t is not threading.current_thread():
                 t.join(timeout=30)

@@ -16,13 +16,20 @@ deep::
 PyTorch runs eagerly, so the step is a plain method; ``dispatch`` enqueues it
 on the current CUDA stream and returns without waiting.
 
+The step takes what the source ships, chosen by its rank as in the JAX
+step: (B, H, W, 3) RGB, or (B, H*3/2, W) planar YUV 4:2:0 (WSINSIGHT_WIRE),
+rebuilt on the device. With stain matrices (``w_est``/``w_def``, swapped per
+slide by ``set_stains``) it normalizes the stains before the preprocess.
+
 ``run_inference`` has the JAX function's default branch (patch
-classification), its cross-slide source prefetch, resume and CSV schema
+classification) with its stain normalization, host resize
+(WSINSIGHT_HOST_RESIZE) and wire (WSINSIGHT_WIRE) read per slide, its
+cross-slide source prefetch, resume and CSV schema
 (``minx,miny,width,height,prob_<class>...``). Its other branches raise
 ``NotImplementedError`` naming the ROADMAP.md Queue 1 item they wait for:
-the QuPath pseudo-models and the references overlay (item 4), end2end cells
-(item 2) and stain normalization (item 5). Multi-host fan-out (item 10) is not
-ported; each process runs every slide it is given.
+the QuPath pseudo-models and the references overlay (item 4) and end2end
+cells (item 2). Multi-host fan-out (item 10) is not ported; each process runs
+every slide it is given.
 """
 
 from __future__ import annotations
@@ -43,7 +50,13 @@ from .. import errors
 from ..errors import not_ported
 from ..models import create_model
 from ..ops.fused_preprocess import make_fused_preprocess_fn
-from ..ops.preprocess import TransformSpec, make_preprocess_fn
+from ..ops.preprocess import TransformSpec, make_preprocess_fn, yuv420_to_rgb
+from ..ops.stain import (
+    EPSILON,
+    deconvolution_based_normalization,
+    default_target_stains,
+    estimate_stains_from_batch,
+)
 from ..parallel.mesh import pad_to_multiple, resolve_device
 from ..uri_path import URIPath
 from ..utils.profiling import maybe_trace
@@ -56,12 +69,10 @@ logger = logging.getLogger(__name__)
 
 
 def _refuse_unported_options(classifier: bool = True) -> None:
-    """Options of the JAX engines not ported yet (host resize is the
-    classifier's alone; PatchBatchSource refuses WSINSIGHT_DECODE_SCALE)."""
-    if os.getenv("WSINSIGHT_WIRE", "").lower() == "yuv420":
-        raise NotImplementedError(not_ported("WSINSIGHT_WIRE=yuv420", 5))
-    if classifier and os.getenv("WSINSIGHT_HOST_RESIZE", "0") not in ("0", ""):
-        raise NotImplementedError(not_ported("WSINSIGHT_HOST_RESIZE", 5))
+    """Options of the JAX engines not ported yet: WSINSIGHT_PRECISION (its
+    torch values are not defined yet), and the cell engine's YUV wire."""
+    if not classifier and os.getenv("WSINSIGHT_WIRE", "").lower() == "yuv420":
+        raise NotImplementedError(not_ported("the cell engine's WSINSIGHT_WIRE=yuv420", 2))
     if os.getenv("WSINSIGHT_PRECISION"):
         raise NotImplementedError(not_ported("WSINSIGHT_PRECISION", 5))
 
@@ -84,6 +95,10 @@ class ClassifierEngine:
     ``WSINSIGHT_PALLAS_PREPROCESS=1`` forces it for parity too (<= 1 uint8
     level of resize drift) and ``=0`` disables it everywhere, as in the JAX
     engine.
+
+    ``w_est`` and ``w_def`` (numpy (3, 3) float32, both or neither) turn on
+    stain normalization; they live on the device as tensors of the step, so
+    ``set_stains`` swaps them per slide without rebuilding anything.
     """
 
     def __init__(
@@ -95,8 +110,6 @@ class ClassifierEngine:
         max_devices: int | None = None,
         device: str | torch.device | None = None,
     ):
-        if w_est is not None or w_def is not None:
-            raise NotImplementedError(not_ported("stain normalization", 5))
         _refuse_unported_options()
         self.device = resolve_device(device)
         self.n_devices = 1  # one device in this slice; max_devices has nothing to cut
@@ -123,8 +136,20 @@ class ClassifierEngine:
                 preprocess = fused
         self._preprocess = preprocess
 
+        self._use_stain = w_est is not None and w_def is not None
+        self._w_est = self._w_def = None
+        if self._use_stain:
+            self.set_stains(w_est, w_def)
+
+    def _stain_tensor(self, w: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(w, np.float32), device=self.device)
+
     def set_stains(self, w_est: np.ndarray, w_def: np.ndarray) -> None:
-        raise NotImplementedError(not_ported("stain normalization", 5))
+        """Swap the per-slide Macenko matrices; nothing is rebuilt."""
+        if not self._use_stain:
+            raise ValueError("engine was built without stain normalization")
+        self._w_est = self._stain_tensor(w_est)
+        self._w_def = self._stain_tensor(w_def)
 
     def pad_batch(self, n: int) -> int:
         """Global batch size: requested size rounded up to the device count."""
@@ -132,7 +157,16 @@ class ClassifierEngine:
 
     def _step(self, batch_u8: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            x = self._preprocess(batch_u8)  # (B, oh, ow, 3) NHWC
+            # A rank-3 batch is the planar YUV 4:2:0 wire (B, H*3/2, W),
+            # rebuilt here; the rank says which format came, so a source that
+            # stayed on RGB (odd sizes) works too.
+            x = yuv420_to_rgb(batch_u8) if batch_u8.dim() == 3 else batch_u8
+            if self._use_stain:
+                x = deconvolution_based_normalization(x.to(torch.float32) + EPSILON,
+                                                      self._w_est, self._w_def)
+                # The reference round-trips through uint8 PIL (data.py:300).
+                x = torch.clamp(torch.round(x), 0.0, 255.0)
+            x = self._preprocess(x.to(torch.uint8))  # (B, oh, ow, 3) NHWC
             # NHWC permuted to NCHW is channels_last, without a copy.
             logits = self.model(x.permute(0, 3, 1, 2))
             if logits.dim() > 1 and logits.shape[1] > 1:
@@ -140,8 +174,9 @@ class ClassifierEngine:
             return torch.sigmoid(logits[:, 0])[:, None]
 
     def put(self, images_u8: np.ndarray) -> torch.Tensor:
-        """Host -> device copy of a (B, H, W, 3) uint8 batch: pinned and
-        non-blocking on CUDA, so it returns before the copy ends."""
+        """Host -> device copy of a (B, H, W, 3) uint8 batch, or of a
+        (B, H*3/2, W) batch on the YUV 4:2:0 wire: pinned and non-blocking on
+        CUDA, so it returns before the copy ends."""
         host = torch.from_numpy(np.ascontiguousarray(images_u8))
         if self.device.type != "cuda":
             return host.to(self.device)
@@ -231,8 +266,6 @@ def run_inference(
         raise NotImplementedError(not_ported("the QuPath pseudo-models", 4))
     if object_based and object_detection == "end2end":
         raise NotImplementedError(not_ported("end2end cell inference", 2))
-    if stain_normalization:
-        raise NotImplementedError(not_ported("stain normalization", 5))
     if references_dir is not None and object_based:
         raise NotImplementedError(not_ported("the references overlay", 4))
 
@@ -276,7 +309,7 @@ def run_inference(
     prefetch_lock = threading.Lock()
     prefetched: dict[str, tuple] = {}
 
-    def spawn_source_prefetch(next_patch_path) -> None:
+    def spawn_source_prefetch(next_patch_path, host_resize, wire) -> None:
         def work():
             src = None
             try:
@@ -289,6 +322,8 @@ def run_inference(
                     use_hdf5_images=use_imgs,
                     batch_size=engine.pad_batch(batch_size),
                     num_threads=governed_workers(num_workers or 4),
+                    host_resize=host_resize,
+                    wire=wire,
                 )
                 it = iter(src)  # starts the producer thread
                 with prefetch_lock:
@@ -312,10 +347,56 @@ def run_inference(
                 pbar.update(1)
                 continue
 
+            w_est = w_def = None
+            if stain_normalization:
+                # Macenko matrices of this slide, from one shuffled sample
+                # batch on the exact RGB wire (reference: :232-266).
+                try:
+                    sample_src = PatchBatchSource(
+                        wsi_path=wsi_path,
+                        patch_path=patch_path,
+                        use_hdf5_images=use_hdf5_images,
+                        batch_size=256,
+                        num_threads=governed_workers(num_workers or 4),
+                        shuffle_seed=0,
+                    )
+                    try:
+                        sample = next(iter(sample_src))
+                    finally:
+                        sample_src.close()
+                    w_est = estimate_stains_from_batch(
+                        sample.images[: sample.n_valid], device=resolve_device(device))
+                    w_def = default_target_stains()
+                except Exception as err:
+                    logger.error(f"stain estimation failed for {wsi_path}", exc_info=err)
+                    failed_inference.append(wsi_path.stem)
+                    pbar.update(1)
+                    continue
+
             if engine is None:
                 engine = ClassifierEngine(
-                    model_info, mixed_precision=mixed_precision, device=device
+                    model_info, mixed_precision=mixed_precision, w_est=w_est, w_def=w_def,
+                    device=device,
                 )
+            elif stain_normalization:
+                engine.set_stains(w_est, w_def)
+            # WSINSIGHT_HOST_RESIZE=1 moves the (downscaling) resize into the
+            # decode threads, to cut host->device bytes on hosts with a thin
+            # link. The device's exact resize is PIL's, so parity
+            # probabilities do not change. Not under stain normalization,
+            # which must see the patch before the resize (reference order:
+            # decode -> stain -> transform).
+            host_resize = None
+            if (
+                os.getenv("WSINSIGHT_HOST_RESIZE", "0") not in ("0", "")
+                and not stain_normalization
+                and engine.spec.size is not None
+            ):
+                host_resize = engine.spec.size
+            # WSINSIGHT_WIRE=yuv420: ship patches as planar YUV 4:2:0 (1.5
+            # B/px) and rebuild RGB on the device. Opt-in (chroma is lossy);
+            # the stain sample above always reads the exact RGB wire.
+            wire = "yuv420" if os.getenv("WSINSIGHT_WIRE", "").lower() == "yuv420" else None
             with prefetch_lock:
                 pre = prefetched.pop(str(patch_path), None)
             src_iter = None
@@ -329,6 +410,8 @@ def run_inference(
                         use_hdf5_images=use_hdf5_images,
                         batch_size=engine.pad_batch(batch_size),
                         num_threads=governed_workers(num_workers or 4),
+                        host_resize=host_resize,
+                        wire=wire,
                     )
                 except Exception as err:
                     logger.error(f"could not open patches for {wsi_path}", exc_info=err)
@@ -336,8 +419,10 @@ def run_inference(
                     pbar.update(1)
                     continue
             # overlap: start the NEXT slide's source while this one runs
-            if not object_based and slide_idx + 1 < len(patch_paths):
-                spawn_source_prefetch(patch_paths[slide_idx + 1])
+            # (not under stain normalization: each slide samples its stains
+            # first)
+            if not object_based and not stain_normalization and slide_idx + 1 < len(patch_paths):
+                spawn_source_prefetch(patch_paths[slide_idx + 1], host_resize, wire)
 
             try:
                 coords_arr, probs_arr = classify_slide(engine, src, src_iter)

@@ -51,7 +51,7 @@ class BackendNotAvailable(WsinsightException):
 _QUEUE_1 = {
     2: "the cell path's host half",
     4: "infer's exporters and side branches",
-    5: "the classifier options that raise today",
+    5: "WSINSIGHT_PRECISION, the one classifier option left",
     7: "HoVer-Net and StarDist",
     9: "the analytics and their CLI",
     10: "scale and tooling",

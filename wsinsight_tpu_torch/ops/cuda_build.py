@@ -10,6 +10,10 @@ The library lands in ``build/wsinsight_tpu_torch/`` at the root of the
 checkout, named by a hash of its source and flags, so an edited source is
 rebuilt and an unchanged one is reused. Nothing here runs at import time: the
 CPU tests import every module on hosts with no ``nvcc``.
+
+``hashed_library_path`` and ``compile_libraries`` are the naming and the
+build (temporary file, then an atomic rename) that ``native_build`` shares
+for the host library.
 """
 
 from __future__ import annotations
@@ -42,35 +46,44 @@ def _nvcc() -> str:
     return nvcc
 
 
+def hashed_library_path(stem: str, sources, flags) -> Path:
+    """``build/wsinsight_tpu_torch/lib<stem>-<hash>.so``, the hash over the
+    bytes of ``sources`` (paths, in order) and ``flags``."""
+    digest = hashlib.sha256()
+    for source in sources:
+        digest.update(Path(source).read_bytes())
+    digest.update(" ".join(flags).encode())
+    return BUILD_DIR / f"lib{stem}-{digest.hexdigest()[:16]}.so"
+
+
 def library_path(source: str) -> Path:
     """Where ``source``'s library is (or will be) built."""
-    digest = hashlib.sha256((CSRC_DIR / source).read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{Path(source).stem}-{digest.hexdigest()[:16]}.so"
+    return hashed_library_path(Path(source).stem, (CSRC_DIR / source,), NVCC_FLAGS)
 
 
-def build(sources: tuple[str, ...] = KERNEL_SOURCES) -> dict[str, str]:
-    """Compile every source not yet built, one ``nvcc`` per source, all
-    started together. Returns each source's compiler output ("" when the
-    library was already built). Raises if any compilation fails."""
+def compile_libraries(jobs) -> dict[str, str]:
+    """Run every job whose library is not built yet, all started together.
+    ``jobs`` maps a name to ``(command, target)``, where ``command(out)`` is
+    the compiler's argument list writing to ``out``. Each compiler writes a
+    temporary file that is renamed onto its target, so concurrent builders
+    race safely. Returns each job's compiler output ("" when the library was
+    already built); raises with that output if any compilation fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    logs = {name: "" for name in sources}
+    logs = {name: "" for name in jobs}
     procs: dict[str, tuple[subprocess.Popen, Path, Path]] = {}
     try:
-        for name in sources:
-            target = library_path(name)
+        for name, (command, target) in jobs.items():
             if target.exists():
                 continue
             tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / name)]
             proc = subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+                command(tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             )
             procs[name] = (proc, tmp, target)
         for name, (proc, tmp, target) in procs.items():
             logs[name], _ = proc.communicate()
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {name}:\n{logs[name]}")
+                raise RuntimeError(f"{Path(proc.args[0]).name} failed on {name}:\n{logs[name]}")
             os.replace(tmp, target)  # atomic: concurrent builders race safely
     finally:
         for proc, tmp, _ in procs.values():
@@ -79,6 +92,17 @@ def build(sources: tuple[str, ...] = KERNEL_SOURCES) -> dict[str, str]:
                 proc.wait()
             tmp.unlink(missing_ok=True)
     return logs
+
+
+def build(sources: tuple[str, ...] = KERNEL_SOURCES) -> dict[str, str]:
+    """Compile every source not yet built, one ``nvcc`` per source, all
+    started together. Returns each source's compiler output ("" when the
+    library was already built). Raises if any compilation fails."""
+    def job(name):
+        return (lambda out: [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC_DIR / name)],
+                library_path(name))
+
+    return compile_libraries({name: job(name) for name in sources})
 
 
 @functools.lru_cache(maxsize=None)

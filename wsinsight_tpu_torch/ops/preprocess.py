@@ -95,6 +95,41 @@ def pil_resize_batch(
     return y
 
 
+def yuv420_to_rgb(packed: torch.Tensor) -> torch.Tensor:
+    """Rebuild RGB from the planar YUV 4:2:0 wire format, on the batch's device.
+
+    Inverse of native.rgb_to_yuv420: ``packed`` is (B, H*3/2, W) uint8, Y plane
+    rows [0, H), then chroma rows holding Cb | Cr side by side at (H/2, W/2).
+    Chroma upsamples with ``jax.image.resize``'s linear kernel (half-pixel
+    centres, ``ops/resize.py``), then the BT.601 full-range inverse, rounded
+    and clipped to [0, 255] float32 so that what follows sees uint8-exact
+    values. Used when WSINSIGHT_WIRE=yuv420 ships patches at 1.5 B/px; lossy
+    in chroma, so opt-in.
+    """
+    from .resize import resize_axis
+
+    _, rows, w = packed.shape
+    h = rows * 2 // 3
+    cw = w // 2
+    y = packed[:, :h, :].to(torch.float32)
+    chroma = packed[:, h:, :].to(torch.float32)
+
+    def upsample(plane: torch.Tensor) -> torch.Tensor:
+        return resize_axis(resize_axis(plane - 128.0, 1, h), 2, w)
+
+    cb = upsample(chroma[:, :, :cw])
+    cr = upsample(chroma[:, :, cw:])
+    rgb = torch.stack(
+        [
+            y + 1.402 * cr,
+            y - 0.344136 * cb - 0.714136 * cr,
+            y + 1.772 * cb,
+        ],
+        dim=-1,
+    )
+    return torch.clamp(torch.round(rgb), 0.0, 255.0)
+
+
 @dataclass(frozen=True)
 class TransformSpec:
     """Resolved transform pipeline for a model config.

@@ -11,13 +11,16 @@ Patch decode is the CPU hot loop that feeds the card (reference call stack:
 modellib/data.py:270-281); `read_region_array` returns numpy directly to avoid a
 PIL round-trip, and a per-slide tile LRU amortizes decode across overlapping reads.
 
-The JAX package's copy also has a native (C++) region reader and a whole-batch
-``read_patches_array``; neither is ported yet, so this reader has no
-``read_patches_array`` and every region decodes through the Python tile path.
+Each level decodes through the native (C++) region reader of ``native/`` where
+it takes the page's layout (8-bit, with segment offsets, a codec it has), and
+through the Python tile path otherwise. ``read_patches_array`` decodes a
+whole batch in one native call. ``reads`` counts the patches (regions) each
+path served, so callers and tests see which one ran.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import threading
 from collections import OrderedDict
@@ -26,6 +29,8 @@ import numpy as np
 from PIL import Image
 
 from .tiff import TiffFile, TiffPage
+
+logger = logging.getLogger(__name__)
 
 PROPERTY_NAME_MPP_X = "wsinsight.mpp-x"
 PROPERTY_NAME_MPP_Y = "wsinsight.mpp-y"
@@ -59,6 +64,14 @@ class TpuSlide:
         self._cache: OrderedDict[tuple[int, int], np.ndarray] = OrderedDict()
         self._cache_budget = tile_cache_mb * (1 << 20)
         self._cache_bytes = 0
+        # Native (C++) region readers per level (and per (level, 2) for the
+        # DCT half-scale decode), created at first use. None means "not yet
+        # tried"; False means "declined, or failed mid-read: Python path".
+        self._native: dict = {}
+        self._native_lock = threading.Lock()
+        self._native_cache_mb = tile_cache_mb
+        # Patches (regions) served by each decode path.
+        self.reads = {"native": 0, "python": 0}
 
         self.properties: dict[str, object] = {}
         mpp = self._tf.mpp()
@@ -96,6 +109,11 @@ class TpuSlide:
         return best
 
     def close(self) -> None:
+        with self._native_lock:
+            for r in self._native.values():
+                if r:
+                    r.close()
+            self._native.clear()
         self._tf.close()
 
     def __enter__(self) -> "TpuSlide":
@@ -127,6 +145,85 @@ class TpuSlide:
                     self._cache_bytes -= old.nbytes
         return arr
 
+    def _count(self, path: str, n: int) -> None:
+        with self._lock:
+            self.reads[path] += n
+
+    def _native_reader(self, level: int, scale_denom: int = 1):
+        """The native region reader of a level, created at first use, or
+        False where ``NativeRegionReader.open`` declined the page.
+
+        scale_denom=2 keys a separate reader that decodes JPEG tiles at DCT
+        half resolution (its coordinates are the halved level grid); other
+        pages decline it. A library that cannot be built or loaded raises.
+        """
+        key = level if scale_denom == 1 else (level, scale_denom)
+        with self._native_lock:
+            r = self._native.get(key)
+            if r is None:
+                from ..native import NativeRegionReader
+
+                r = NativeRegionReader.open(self.path, self._levels[level],
+                                            cache_mb=self._native_cache_mb,
+                                            scale_denom=scale_denom) or False
+                self._native[key] = r
+            return r
+
+    def has_native(self, level: int = 0, scale_denom: int = 1) -> bool:
+        """Whether ``read_patches_array`` decodes this level natively."""
+        if level < 0 or level >= len(self._levels):
+            raise ValueError(f"invalid level {level}")
+        return self._native_reader(level, scale_denom) is not False
+
+    def _native_failed(self, level: int, scale_denom: int, what: str) -> None:
+        """A decode error inside the native reader: the level (at this
+        scale) sticks to the Python path from here on."""
+        key = level if scale_denom == 1 else (level, scale_denom)
+        with self._native_lock:
+            self._native[key] = False
+        logger.warning(f"{self.path}: native decode failed on {what} at level {level}"
+                       f" (scale 1/{scale_denom}); that level decodes in Python from here on")
+
+    def read_patches_array(
+        self,
+        locations: np.ndarray,
+        level: int,
+        size: tuple[int, int],
+        out: np.ndarray | None = None,
+        scale_denom: int = 1,
+    ) -> np.ndarray | None:
+        """Batch-decode (n, 2) level-0 [x, y] locations to (n, h, w, 3) uint8.
+
+        One GIL-free native call for the whole batch (decode, tile LRU and
+        assembly in C++). Returns None where the level has no native reader
+        (``has_native``) or a decode error stopped it (logged; the level then
+        stays on the Python path); the caller then decodes per patch with
+        ``read_region_array``. ``out`` optionally receives the pixels (lets
+        callers shard a batch across threads).
+
+        With scale_denom=2 (JPEG pages only), pixels come from the DCT
+        half-resolution decode: ``size`` is the halved patch size and each
+        location maps to floor(loc / 2) on the halved grid (the fast-input
+        decode; lossy against decode-then-downsample, so opt-in).
+        """
+        if level < 0 or level >= len(self._levels):
+            raise ValueError(f"invalid level {level}")
+        reader = self._native_reader(level, scale_denom)
+        if reader is False:
+            return None
+        locs = np.asarray(locations, np.int64).reshape(-1, 2)
+        if level:
+            ds = self.level_downsamples[level]
+            locs = (locs / ds).astype(np.int64)
+        if scale_denom != 1:
+            locs = locs // scale_denom
+        got = reader.read_patches(locs, size, out=out)
+        if got is None:
+            self._native_failed(level, scale_denom, f"a batch of {len(locs)} patches")
+            return None
+        self._count("native", len(locs))
+        return got
+
     def read_region_array(
         self, location: tuple[int, int], level: int, size: tuple[int, int]
     ) -> np.ndarray:
@@ -146,6 +243,15 @@ class TpuSlide:
         if lx1 <= lx0 or ly1 <= ly0:
             return out
 
+        reader = self._native_reader(level)
+        if reader is not False:
+            arr = reader.read_region((x0, y0), (w, h))
+            if arr is not None:
+                self._count("native", 1)
+                return arr
+            self._native_failed(level, 1, f"the region at {(x0, y0)}")
+
+        self._count("python", 1)
         if page.is_tiled:
             tw, thh = page.tile_width, page.tile_height
             ta = page.tiles_across

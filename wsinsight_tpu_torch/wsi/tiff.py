@@ -4,8 +4,8 @@ The reference stack reads slides through tiffslide/openslide/tifffile (reference
 wsinsight/wsi.py:21-50, wsinsight/patchlib/pipeline.py:23,306). None of those are
 dependencies here: wsinsight-tpu owns the container format end to end so the input
 pipeline can be tuned for feeding the accelerator (tile-granular reads, zero-copy numpy
-assembly). This copy in the port decodes in Python, numpy, zlib and cv2; the JAX
-package's native C++ decoders (LZW, whole-batch tile reads) are not ported yet.
+assembly, and a native C++ fast path for the hot decode loop: ``native/``, built
+at first use, decodes LZW here and whole batches of tiles in ``wsi/slide.py``).
 
 Supported on read:
   * Classic TIFF and BigTIFF, little- and big-endian.
@@ -277,6 +277,13 @@ class TiffPage:
         if c in (COMPRESSION_DEFLATE, COMPRESSION_DEFLATE_ADOBE):
             return zlib.decompress(raw)
         if c == COMPRESSION_LZW:
+            # Native codec (releases the GIL; decode threads scale). A stream
+            # it finds corrupt goes to the Python codec, which says why.
+            from ..native import lzw_decode_native
+
+            out = lzw_decode_native(raw, out_size)
+            if out is not None:
+                return out
             return lzw_decode(raw, out_size)
         if c == COMPRESSION_PACKBITS:
             return packbits_decode(raw)
