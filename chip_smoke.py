@@ -7,7 +7,8 @@ Drives the port's two paths at full width and depth with seeded random
 weights: patch classification with the zoo model breast-tumor-resnet34.
 tcga-brca (350 px patches, resize 224, ResNet34, 2 classes), and the CellViT
 cell path with CellViT-SAM-H-x40 (ViT-H, 32 blocks, windowed and global
-rel-pos attention) and CellViT-256-x40 (ViT-S/16 with a cls token). Holds
+rel-pos attention; also over a whole slide to its nuclei) and
+CellViT-256-x40 (ViT-S/16 with a cls token). Holds
 every hand-written kernel against its plain torch version. Phases; any
 failure exits non-zero and prints no result line:
 
@@ -81,7 +82,26 @@ failure exits non-zero and prints no result line:
       patches on the card vs the CPU (parity) <= 1e-3, rows finite and
       summing to 1, and the Macenko stain estimate of a 256-patch sample on
       the card vs the CPU <= 1e-4; reported, not checked (lossy by contract):
-      max |dp| and argmax agreement of each bf16 run against (j)'s bf16 run.
+      max |dp| and argmax agreement of each bf16 run against (j)'s bf16 run;
+  (l) a whole slide through the cell path: a seeded synthetic slide (8,192 x
+      8,192 px at 0.25 um/px, JPEG tiles of 256 at quality 85, 3 levels;
+      (j)'s tissue tones and noise with dark-purple nuclei 4-8 um across)
+      planned by plan_slide on CellViT-SAM-H-x40's halo grid (256 px, halo
+      46, step 164), then for (g)'s SAM-H engines in parity and bf16:
+      PatchBatchSource.from_coords (B=32, the CLI's decode pool) ->
+      stitch_slide -> finalize (the CLI's --stitch-workers) -> the CSV through
+      write_slide_csv: patches/s without and with the finalize, device-busy
+      share, the main thread's split (decode wait, put, dispatch, scatter,
+      rest), the finalize's seconds, workers and tiles/s, the foreground share
+      and instance count, peak device memory and the canvases' host bytes;
+      checks: K2 launches 32 per batch and K1 none, the CSV one row per
+      instance (finite, rows summing to 1 within K/2 levels), boxes,
+      probabilities and polygons aligned and each polygon inside its bbox,
+      the native watershed equal to the Python one (and to
+      segment_instances) on a 512^2 crop of the parity canvas's first tile,
+      and finalize with WSINSIGHT_DEVICE_RIDGE=1 (the energy in torch on the
+      card) giving the cv2 path's instance set; reported, not checked: bf16
+      against parity instances.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}, printed exactly when every phase passed, and
@@ -150,6 +170,15 @@ SLIDE_BACKGROUND = (236, 236, 236)  # neutral glass: no saturation
 SLIDE_TONES = ((176, 98, 168), (214, 132, 186), (150, 80, 160), (226, 160, 200))
 SLIDE_NOISE = 17  # uniform in [-17, 17]: sigma 10.1 levels
 TWIN_SIDE = SLIDE_PX // 2  # the lossless twin: the slide's top-left quarter
+# (l)'s synthetic slide: a 2 mm tissue-microarray core or needle-biopsy
+# fragment at 40x, with nuclei: dark-purple ellipses 4-8 um across, one per
+# 60 x 60 px of tissue, on (j)'s tones and noise.
+CELL_SLIDE_PX = 8192
+CELL_SLIDE_MODEL = "CellViT-SAM-H-x40"
+NUCLEUS_TONE = (96, 52, 132)
+NUCLEUS_RADII = (8, 16)  # px at 0.25 um/px
+NUCLEUS_AREA = 60 * 60  # tissue px per nucleus
+WATERSHED_CROP = 512  # the native vs Python watershed check's crop side
 
 
 def _smi(query: str) -> str:
@@ -271,15 +300,7 @@ def write_synthetic_slide(path: str, side: int, rng: np.random.Generator,
     from wsinsight_tpu_torch.wsi.tiff import write_pyramidal_tiff
 
     t0 = time.perf_counter()
-    coarse = np.linspace(0, side, 256, endpoint=False)
-    cy, cx = np.meshgrid(coarse, coarse, indexing="ij")
-    covered = np.zeros(cy.shape, bool)
-    blobs = []
-    while covered.mean() < SLIDE_TISSUE:  # add blobs until half is tissue
-        y, x = rng.uniform(0.15, 0.85, 2) * side
-        ry, rx = rng.uniform(0.08, 0.2, 2) * side
-        blobs.append((y, x, ry, rx, SLIDE_TONES[len(blobs) % len(SLIDE_TONES)]))
-        covered |= ((cy - y) / ry) ** 2 + ((cx - x) / rx) ** 2 <= 1
+    blobs, tissue = tissue_blobs(side, rng)
     img = np.empty((side, side, 3), np.uint8)
     xs = np.arange(side, dtype=np.float32)[None, :]
     for y0 in range(0, side, 512):
@@ -296,7 +317,82 @@ def write_synthetic_slide(path: str, side: int, rng: np.random.Generator,
     t0 = time.perf_counter()
     write_pyramidal_tiff(twin_path, img[:twin_side, :twin_side], tile=(256, 256),
                          compression="deflate", mpp=SLIDE_MPP, levels=1)
-    return float(covered.mean()), secs, time.perf_counter() - t0
+    return tissue, secs, time.perf_counter() - t0
+
+
+def tissue_blobs(side: int, rng: np.random.Generator) -> tuple[list, float]:
+    """Seeded tissue ellipses in H&E tones, added until they cover
+    SLIDE_TISSUE of a coarse grid: ([(y, x, ry, rx, tone)], share covered)."""
+    coarse = np.linspace(0, side, 256, endpoint=False)
+    cy, cx = np.meshgrid(coarse, coarse, indexing="ij")
+    covered = np.zeros(cy.shape, bool)
+    blobs = []
+    while covered.mean() < SLIDE_TISSUE:  # add blobs until half is tissue
+        y, x = rng.uniform(0.15, 0.85, 2) * side
+        ry, rx = rng.uniform(0.08, 0.2, 2) * side
+        blobs.append((y, x, ry, rx, SLIDE_TONES[len(blobs) % len(SLIDE_TONES)]))
+        covered |= ((cy - y) / ry) ** 2 + ((cx - x) / rx) ** 2 <= 1
+    return blobs, float(covered.mean())
+
+
+def write_nuclei_slide(path: str, side: int, rng: np.random.Generator) -> tuple[float, tuple, float]:
+    """Write (l)'s slide: (j)'s tissue tones on neutral glass, nuclei drawn
+    over the tissue, then (j)'s per-pixel noise; a 3-level JPEG pyramid with
+    tiles of 256 at quality 85. Returns (tissue share, the nuclei drawn as
+    (centres, radii, angles), seconds)."""
+    import cv2
+
+    from wsinsight_tpu_torch.wsi.tiff import write_pyramidal_tiff
+
+    t0 = time.perf_counter()
+    blobs, tissue = tissue_blobs(side, rng)
+    img = np.empty((side, side, 3), np.uint8)
+    xs = np.arange(side, dtype=np.float32)[None, :]
+    for y0 in range(0, side, 512):
+        ys = np.arange(y0, min(side, y0 + 512), dtype=np.float32)[:, None]
+        img[y0:y0 + len(ys)] = SLIDE_BACKGROUND
+        for y, x, ry, rx, tone in blobs:
+            img[y0:y0 + len(ys)][((ys - y) / ry) ** 2 + ((xs - x) / rx) ** 2 <= 1] = tone
+    n = side * side // NUCLEUS_AREA
+    centres = rng.integers(0, side, (n, 2))
+    radii = rng.integers(*NUCLEUS_RADII, (n, 2), endpoint=True)
+    angles = rng.uniform(0, 180, n)
+    in_tissue = (img[centres[:, 1], centres[:, 0]] != SLIDE_BACKGROUND).any(axis=1)
+    for (x, y), (rx, ry), a in zip(centres[in_tissue], radii[in_tissue], angles[in_tissue]):
+        cv2.ellipse(img, (int(x), int(y)), (int(rx), int(ry)), float(a), 0, 360, NUCLEUS_TONE, -1)
+    for y0 in range(0, side, 512):
+        strip = img[y0:y0 + 512].astype(np.int16)
+        strip += rng.integers(-SLIDE_NOISE, SLIDE_NOISE + 1, strip.shape, dtype=np.int16)
+        img[y0:y0 + 512] = np.clip(strip, 0, 255)
+    write_pyramidal_tiff(path, img, tile=(256, 256), compression="jpeg", mpp=SLIDE_MPP,
+                         levels=3)
+    nuclei = (centres[in_tissue], radii[in_tissue], angles[in_tissue])
+    return tissue, nuclei, time.perf_counter() - t0
+
+
+def paint_nuclei(st, nuclei, rng: np.random.Generator) -> None:
+    """Fill a stitcher's canvases with the maps a perfect model would give
+    for the drawn nuclei: NP 1 inside a nucleus, HV the offset from its
+    centre over its larger radius (the last drawn of two overlapping nuclei
+    owns their overlap), TP one seeded class per nucleus, background class 0
+    outside."""
+    import cv2
+
+    centres, radii, angles = nuclei
+    owner = np.zeros(st.np_map.shape, np.int32)
+    for i, ((x, y), (rx, ry), a) in enumerate(zip(centres, radii, angles), start=1):
+        cv2.ellipse(owner, (int(x), int(y)), (int(rx), int(ry)), float(a), 0, 360, i, -1)
+    fg = owner > 0
+    ys, xs = np.nonzero(fg)
+    idx = owner[ys, xs] - 1
+    r = radii.max(axis=1).astype(np.float32)
+    st.np_map[:] = fg
+    st.hv_map[:] = 0
+    st.hv_map[ys, xs, 0] = (xs - centres[idx, 0]) / r[idx]
+    st.hv_map[ys, xs, 1] = (ys - centres[idx, 1]) / r[idx]
+    st.tp_map[:] = 0
+    st.tp_map[..., 0] = ~fg
+    st.tp_map[ys, xs, rng.integers(1, st.n_classes, len(centres))[idx]] = 1
 
 
 class Window:
@@ -637,6 +733,302 @@ def slide_phase(check, kernels, card, rng, side: int = SLIDE_PX) -> dict:
     return {"stats": stats, "k1_launches": k1_launches}
 
 
+def run_cell_slide(engine, kernels, path, coords, ps, dims, workers, stitch_workers):
+    """The cell path over a plan: PatchBatchSource.from_coords -> stitch_slide
+    -> finalize, timed. Returns (stitcher, (boxes, probs, polygons), stats):
+    patches/s without and with the finalize, device-busy share, the main
+    thread's split, the finalize's seconds and tiles, peak memory, the
+    canvases' bytes and kernel launches."""
+    import torch
+
+    from wsinsight_tpu_torch.engine.cells import make_slide_stitcher, stitch_slide
+    from wsinsight_tpu_torch.engine.data import PatchBatchSource
+
+    cfg = engine.config
+    plain = engine.put, engine.dispatch
+    window = Window(engine)
+    window.host["scatter"] = 0.0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    stitcher = make_slide_stitcher(engine, dims[0], dims[1], SLIDE_MPP, cfg.halo_size_pixels)
+    scatter = stitcher.scatter
+
+    def timed_scatter(*args):
+        t = time.perf_counter()
+        scatter(*args)
+        window.host["scatter"] += time.perf_counter() - t
+
+    stitcher.scatter = timed_scatter
+    src = PatchBatchSource.from_coords(path, coords, ps, CELL_BATCH, num_threads=workers,
+                                       decode_scale=1)
+    try:
+        stitch_slide(engine, stitcher, src, window.batches(src))
+    finally:
+        src.close()
+        engine.put, engine.dispatch = plain
+        stitcher.scatter = scatter
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for fn, name in kernels.items()}
+    t1 = time.perf_counter()
+    out = stitcher.finalize(num_workers=stitch_workers)
+    fin = time.perf_counter() - t1
+    h, w = stitcher.slide_height, stitcher.slide_width
+    tiles = -(-h // 2048) * -(-w // 2048)
+    n = len(coords)
+    stats = {"patches": n, "batches": src.num_batches, "patches_s": n / wall,
+             "patches_s_with_finalize": n / (wall + fin), "wall_s": wall, "finalize_s": fin,
+             "finalize_workers": stitch_workers, "tiles": tiles, "tiles_s": tiles / fin,
+             "busy": window.device_s() / wall,
+             "host_shares": {k: v / wall for k, v in window.host.items()},
+             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "canvas_bytes": stitcher.np_map.nbytes + stitcher.hv_map.nbytes
+             + stitcher.tp_map.nbytes,
+             "foreground": float((stitcher.np_map >= 0.5).mean()), "instances": len(out[0]),
+             "launches": launches, "reads": dict(src._slide.reads)}
+    return stitcher, out, stats
+
+
+def same_instances(a, b) -> tuple[bool, float]:
+    """(whether two finalize results hold the same instance set: boxes and
+    polygons identical after sorting by (miny, minx, h, w); max |dp| of the
+    class probabilities)."""
+    if len(a[0]) != len(b[0]):
+        return False, float("nan")
+    if not a[0]:
+        return True, 0.0
+
+    def ordered(out):
+        boxes = np.concatenate(out[0])
+        order = np.lexsort((boxes[:, 3], boxes[:, 2], boxes[:, 0], boxes[:, 1]))
+        return boxes[order], np.concatenate(out[1])[order], [out[2][i] for i in order]
+
+    (ba, pa, ra), (bb, pb, rb) = ordered(a), ordered(b)
+    same = np.array_equal(ba, bb) and all(np.array_equal(x, y) for x, y in zip(ra, rb))
+    return same, float(np.abs(pa - pb).max())
+
+
+def watershed_crop_check(check, st, what: str) -> dict:
+    """The native watershed against the Python one (and segment_instances)
+    on the 512^2 crop of a canvas's first full tile with the most foreground,
+    seeds, basin and mask as segment_instances builds them."""
+    from wsinsight_tpu_torch.ops import hv_postproc as hv
+    from wsinsight_tpu_torch.ops.watershed import _watershed_python, watershed
+
+    tile = st.np_map[:2048 + 64, :2048 + 64]
+    c = WATERSHED_CROP
+    fg_sums = {(y, x): float((tile[y:y + c, x:x + c] >= 0.5).sum())
+               for y in range(0, tile.shape[0] - c + 1, c // 2)
+               for x in range(0, tile.shape[1] - c + 1, c // 2)}
+    y0, x0 = max(fg_sums, key=fg_sums.get)
+    np_c = np.ascontiguousarray(st.np_map[y0:y0 + c, x0:x0 + c])
+    hv_c = np.ascontiguousarray(st.hv_map[y0:y0 + c, x0:x0 + c])
+    fg_raw = np_c >= hv._FG_THRESHOLD
+    fg = hv._label_small_filtered(fg_raw.astype(np.uint8), st.min_object_size) > 0
+    e_u8 = hv._energy_u8(hv_c, fg_raw, None)
+    basin = hv._integer_basin(e_u8, fg_raw)
+    markers = hv._seeds(fg, e_u8 >= hv._BOUNDARY_U8, st.min_object_size)
+    t0 = time.perf_counter()
+    native = watershed(basin, markers, fg)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    python = _watershed_python(basin, markers, fg.astype(np.uint8))
+    python_s = time.perf_counter() - t0
+    seg = hv.segment_instances(np_c, hv_c, st.min_object_size)
+    seeds, labels = len(np.unique(markers)) - 1, len(np.unique(native)) - 1
+    check(np.array_equal(native, python) and np.array_equal(native, seg),
+          f"(l) native watershed = Python watershed = segment_instances, label for label, on the"
+          f" {c}^2 crop at ({x0}, {y0}) of {what}'s first tile: {int(fg.sum())} mask px, {seeds}"
+          f" seeds, {labels} labels; native {native_s * 1e3:.1f} ms, Python {python_s:.2f} s")
+    return {"at": [int(x0), int(y0)], "mask_px": int(fg.sum()), "seeds": seeds,
+            "labels": labels, "native_s": native_s, "python_s": python_s}
+
+
+def ridge_check(check, st, workers: int, cv2_path, what: str) -> dict:
+    """finalize with WSINSIGHT_DEVICE_RIDGE=1 (the energy in torch on the
+    stitcher's device, the card) against the cv2 path's result on the same
+    canvases: the same instance set."""
+    import wsinsight_tpu_torch.ops.hv_device as hv_device
+
+    calls = []
+    energy = hv_device.separation_energy_batched
+
+    def counted(hv_tiles, device):
+        calls.append((hv_tiles.shape, str(device)))
+        return energy(hv_tiles, device)
+
+    hv_device.separation_energy_batched = counted
+    os.environ["WSINSIGHT_DEVICE_RIDGE"] = "1"
+    try:
+        t0 = time.perf_counter()
+        ridge = st.finalize(num_workers=workers)
+        ridge_s = time.perf_counter() - t0
+    finally:
+        del os.environ["WSINSIGHT_DEVICE_RIDGE"]
+        hv_device.separation_energy_batched = energy
+    same, dp = same_instances(ridge, cv2_path)
+    on_card = bool(calls) and all(d.startswith("cuda") for _, d in calls)
+    check(on_card and same, f"(l) {what}: finalize with WSINSIGHT_DEVICE_RIDGE=1 ({len(calls)}"
+          f" energy batch(es) of {calls[0][0] if calls else None} on"
+          f" {calls[0][1] if calls else None}, {ridge_s:.2f} s) gives the cv2 path's instance set"
+          f" ({len(ridge[0])} instances, boxes and polygons identical), max |dp| {dp:.3g}")
+    return {"finalize_s": ridge_s, "energy_batches": len(calls), "same": same, "max_abs_dp": dp}
+
+
+def cell_slide_phase(check, kernels, card, rng, engines) -> dict:
+    """(l): a synthetic slide with nuclei through the cell path: plan_slide
+    (halo grid) -> PatchBatchSource -> stitch_slide -> finalize -> the CSV,
+    with CellViT-SAM-H-x40 in parity and bf16; the native watershed against
+    the Python one and the ridge on the card against the cv2 path, on the
+    parity canvases and on the drawn nuclei's own maps."""
+    import pandas as pd
+
+    from wsinsight_tpu_torch.cli.infer import default_infer_workers, default_stitch_workers
+    from wsinsight_tpu_torch.engine.runner import write_slide_csv
+    from wsinsight_tpu_torch.ops.watershed import _watershed_python, watershed
+    from wsinsight_tpu_torch.patchlib import plan_slide
+    from wsinsight_tpu_torch.uri_path import URIPath
+    from wsinsight_tpu_torch.utils.workers import governed_workers
+
+    tmp = tempfile.TemporaryDirectory()
+    path = f"{tmp.name}/cells.tif"
+    side = CELL_SLIDE_PX
+    tissue, nuclei, secs = write_nuclei_slide(path, side, rng)
+    print(f"(l) slide {side} x {side} px at {SLIDE_MPP} um/px ({side * SLIDE_MPP / 1000:.2f} mm"
+          f" square), JPEG tiles of 256 at quality 85, 3 levels, tissue {tissue:.1%} of a coarse"
+          f" grid, {len(nuclei[0])} nuclei drawn: {os.path.getsize(path) / 2**20:.1f} MiB written in"
+          f" {secs:.1f} s (kept out of every rate); {card}")
+    cfg = engines[False].config
+    t0 = time.perf_counter()
+    plan, ctx, *_ = plan_slide(URIPath(path), None, None, None, cfg.patch_size_pixels,
+                               cfg.spacing_um_px, cfg.halo_size_pixels, object_based=True,
+                               object_detection="end2end")  # the CLI's defaults
+    plan_s = time.perf_counter() - t0
+    dims = ctx.slide.dimensions
+    ctx.slide.close()
+    n, ps = len(plan.coords), plan.patch_size
+    step = int(np.diff(np.unique(plan.coords[:, 0])).min())
+    workers = governed_workers(default_infer_workers())  # as run_cell_inference sizes the pool
+    stitch_workers = default_stitch_workers()  # the CLI's --stitch-workers
+    n_batches = -(-n // CELL_BATCH)
+    print(f"    plan_slide, halo grid of {CELL_SLIDE_MODEL} ({ps} px, halo"
+          f" {cfg.halo_size_pixels}, step {step}): {n} patches, {n_batches} batches of"
+          f" B={CELL_BATCH}, in {plan_s:.2f} s on the host; decode pool {workers} thread(s),"
+          f" finalize {stitch_workers} worker(s) (the CLI's defaults)")
+    check(step == ps - 2 * cfg.halo_size_pixels, f"(l) the halo grid's step {step} (patch - 2 x"
+          f" halo = {ps - 2 * cfg.halo_size_pixels})")
+    header = ",".join(["minx", "miny", "width", "height"] + [f"prob_{c}" for c in cfg.class_names])
+    stats = {"side": side, "tissue": tissue, "nuclei_drawn": len(nuclei[0]), "write_s": secs,
+             "plan_s": plan_s, "patches": n, "card": card}
+    results, stitchers = {}, {}
+    k2_launches = 0
+    for mixed in (False, True):
+        mode = "bf16" if mixed else "parity"
+        engine = engines[mixed]
+        st, out, run = run_cell_slide(engine, kernels, path, plan.coords, ps, dims, workers,
+                                      stitch_workers)
+        stats[mode] = run
+        results[mode] = out
+        host = run["host_shares"]
+        print(f"    {mode}: {run['patches_s']:.1f} patches/s over the slide without the finalize"
+              f" ({run['wall_s']:.2f} s), {run['patches_s_with_finalize']:.1f} with it; device"
+              f" busy {run['busy']:.1%} of the wall time; peak {run['peak_gib']:.2f} GiB on the"
+              f" card, canvases {run['canvas_bytes'] / 1e9:.2f} GB on the host; reads"
+              f" {run['reads']}; {card}")
+        print(f"    {mode} main thread, share of the wall time: waiting for decoded batches"
+              f" {host['decode_wait']:.1%}, put {host['put']:.1%}, dispatch"
+              f" {host['dispatch']:.1%}, scatter {host['scatter']:.1%}, the rest"
+              f" {1 - sum(host.values()):.1%}")
+        print(f"    {mode} finalize: {run['finalize_s']:.2f} s on {run['finalize_workers']}"
+              f" worker(s), {run['tiles']} tiles, {run['tiles_s']:.2f} tiles/s"
+              f" ({run['finalize_s'] / (run['wall_s'] + run['finalize_s']):.1%} of the slide's"
+              f" time); foreground (NP >= 0.5) {run['foreground']:.2%} of the canvas,"
+              f" {run['instances']} instances")
+        k2 = run["launches"]["window_attention"]
+        k2_launches += k2
+        check(k2 == 32 * run["batches"] and run["batches"] == n_batches,
+              f"(l) {mode}: K2 launches {k2} (32 per batch x {run['batches']} batches)")
+        check(run["launches"]["fused_preprocess"] == 0, f"(l) {mode}: K1 launches 0")
+        boxes, probs, polys = out
+        check(len(boxes) == len(probs) == len(polys), f"(l) {mode}: boxes, probabilities and"
+              f" polygons aligned ({len(boxes)}, {len(probs)}, {len(polys)})")
+        inside = all(len(r) >= 3 and (r.min(0) >= b[0, :2]).all()
+                     and (r.max(0) <= b[0, :2] + b[0, 2:] - 1).all() for b, r in zip(boxes, polys))
+        check(inside, f"(l) {mode}: every polygon (>= 3 vertices) lies inside its bbox")
+        csv = URIPath(f"{tmp.name}/{mode}.csv")
+        k = cfg.num_classes
+        coords_arr = np.concatenate(boxes) if boxes else np.zeros((0, 4), np.int32)
+        probs_arr = np.concatenate(probs) if probs else np.zeros((0, k), np.float32)
+        write_slide_csv(csv, coords_arr, probs_arr, cfg.class_names)
+        with open(str(csv)) as fh:
+            first = fh.readline().strip()
+        df = pd.read_csv(str(csv))
+        p = df[[f"prob_{c}" for c in cfg.class_names]].to_numpy(dtype=np.float64)
+        dsum = float(np.abs(p.sum(axis=1) - 1.0).max()) if len(p) else 0.0
+        check(first == header and len(df) == len(boxes) and bool(np.isfinite(p).all())
+              and dsum <= k * 0.5 / 255 + 1e-6,
+              f"(l) {mode}: the CSV has one row per instance ({len(df)}) under {header}, rows"
+              f" finite, summing to 1 within {dsum:.3g} (<= K x 1/2 level, quantized transfer)")
+        stitchers[mode] = st
+        print(f"    {_smi('clocks.sm,power.draw,temperature.gpu')} (SM clock, power, temperature)")
+    stitchers["bf16"].close()
+
+    # native vs Python watershed: this machine's build of the host library on
+    # seeded random basins with disc seeds, then on crops of the canvases
+    fuzz = np.random.default_rng(7)
+    img = fuzz.random((WATERSHED_CROP, WATERSHED_CROP)).astype(np.float32)
+    mask = fuzz.random(img.shape) < 0.6
+    markers = np.zeros(img.shape, np.int32)
+    yy, xx = np.mgrid[:WATERSHED_CROP, :WATERSHED_CROP]
+    for lab, (cy, cx) in enumerate(fuzz.integers(0, WATERSHED_CROP, (40, 2)), start=1):
+        markers[np.hypot(yy - cy, xx - cx) < 6] = lab
+    markers[~mask] = 0
+    check(np.array_equal(watershed(img, markers, mask),
+                         _watershed_python(img, markers, mask.astype(np.uint8))),
+          f"(l) native watershed = Python watershed on a seeded random {WATERSHED_CROP}^2 basin"
+          " (40 disc seeds, 60% mask)")
+    st = stitchers["parity"]
+    stats["watershed_crop"] = watershed_crop_check(check, st, "the parity canvas")
+    stats["ridge"] = ridge_check(check, st, stitch_workers, results["parity"], "parity canvases")
+
+    # The seeded model leaves few seeds (random HV fields), so its canvases
+    # exercise little of the watershed: the same finalize, checks and
+    # timing on the maps a perfect model would give for the drawn nuclei.
+    paint_nuclei(st, nuclei, rng)
+    t0 = time.perf_counter()
+    drawn = st.finalize(num_workers=stitch_workers)
+    drawn_s = time.perf_counter() - t0
+    n_drawn = len(nuclei[0])
+    print(f"    the drawn nuclei's own maps ({n_drawn} nuclei, foreground"
+          f" {float(st.np_map.mean()):.2%}): finalize {drawn_s:.2f} s on {stitch_workers}"
+          f" worker(s), {16 / drawn_s:.2f} tiles/s, {len(drawn[0])} instances"
+          f" ({len(drawn[0]) / drawn_s:.0f} per s)")
+    boxes, probs, polys = drawn
+    inside = all(len(r) >= 3 and (r.min(0) >= b[0, :2]).all()
+                 and (r.max(0) <= b[0, :2] + b[0, 2:] - 1).all() for b, r in zip(boxes, polys))
+    check(len(boxes) == len(probs) == len(polys) and inside and len(boxes) >= n_drawn // 2,
+          f"(l) the drawn-nuclei canvas: {len(boxes)} instances of {n_drawn} drawn nuclei"
+          " (>= half: overlapping ones may merge), lists aligned, every polygon inside its bbox")
+    stats["drawn"] = {"nuclei": n_drawn, "finalize_s": drawn_s, "instances": len(boxes),
+                      "watershed_crop": watershed_crop_check(check, st, "the drawn-nuclei canvas"),
+                      "ridge": ridge_check(check, st, stitch_workers, drawn,
+                                           "the drawn-nuclei canvas")}
+    st.close()
+
+    # reported, not checked: bf16 against parity
+    pb = {tuple(b[0]) for b in results["bf16"][0]}
+    shared = sum(tuple(b[0]) in pb for b in results["parity"][0])
+    share = shared / max(1, len(results["parity"][0]))
+    print(f"    bf16 vs parity (not checked): {len(results['bf16'][0])} against"
+          f" {len(results['parity'][0])} instances; {share:.1%} of the parity instances' bboxes"
+          " occur in bf16")
+    stats["bf16_vs_parity"] = {"bbox_share": share}
+    tmp.cleanup()
+    return {"stats": stats, "k2_launches": k2_launches}
+
+
 def main() -> int:
     import torch
 
@@ -947,11 +1339,22 @@ def main() -> int:
         check(all(np.isfinite(m).all() for m in maps) and tp_sum <= 1e-5,
               f"(i) {model_name} float32 maps finite, TP rows sum to 1 within {tp_sum:.3g}")
         cell[model_name] = stats
+        if model_name == CELL_SLIDE_MODEL:  # kept for (l), on the host until then
+            slide_engines = engines
+            for engine in engines.values():
+                engine.model.to("cpu")
         del data, engines, cpu_engine, stitchers, p32, p16, exact, on_card, on_host
         torch.cuda.empty_cache()
 
     # (j) ------------------------------------------------------------------
     slide = slide_phase(check, kernels, card, rng)
+
+    # (l) ------------------------------------------------------------------
+    for engine in slide_engines.values():
+        engine.model.to(dev)
+    cell_slide = cell_slide_phase(check, kernels, card, rng, slide_engines)
+    del slide_engines
+    torch.cuda.empty_cache()
 
     if check.failed:
         print(f"chip_smoke: {len(check.failed)} check(s) failed", file=sys.stderr)
@@ -965,6 +1368,7 @@ def main() -> int:
                    if s["shape"] == "sam_h_windowed" and s["dtype"] == "bfloat16")
     k2_launches = sum(st["launches"]["window_attention"]
                       for stats in cell.values() for st in stats.values())
+    k2_launches += cell_slide["k2_launches"]
     record = {"kernels": [{
         "name": "fused_preprocess",
         "route": "cuda",
@@ -996,6 +1400,7 @@ def main() -> int:
     }]}
     print(json.dumps({"cells": cell}))
     print(json.dumps({"slide": slide["stats"]}))
+    print(json.dumps({"cell_slide": cell_slide["stats"]}))
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

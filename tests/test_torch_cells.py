@@ -167,8 +167,15 @@ def test_device_postprocess_and_scatter_match_jax(s, slide_mpp, transfer):
             assert np.abs(g - w).max() <= 1 / 255 + 1e-7, name
         else:
             _assert_transferred(g, w, kinds[i], name)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tst.finalize()
+    # finalize runs on the scattered canvases: the JAX finalize on the same
+    # canvases finds the same instances
+    for i, name in enumerate(("np_map", "hv_map", "tp_map")):
+        getattr(jst, name)[:] = getattr(tst, name)
+    got, want = tst.finalize(num_workers=1), jst.finalize(num_workers=1)
+    assert len(got[0]) == len(got[1]) == len(got[2]) == len(want[0])
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_cell_engine_matches_jax(jax_cell_model):
@@ -267,7 +274,29 @@ def test_engine_init_random_is_seeded():
     assert a.run_batch(np.zeros((1, 96, 96, 3), np.uint8))["hv_map"].shape == (1, 2, 64, 64)
 
 
-@pytest.mark.parametrize("var,value", [("WSINSIGHT_WIRE", "yuv420"), ("WSINSIGHT_PRECISION", "high")])
+def test_cell_engine_takes_the_yuv_wire(monkeypatch, jax_cell_model):
+    """WSINSIGHT_WIRE=yuv420: the cell path's sources ship (B, P*3/2, P)
+    planar YUV 4:2:0 and the engine rebuilds RGB on its device; its maps are
+    those of the RGB wire on the rebuilt patches."""
+    from wsinsight_tpu_torch.engine.cells import _cell_wire
+    from wsinsight_tpu_torch.native import rgb_to_yuv420
+    from wsinsight_tpu_torch.ops.preprocess import yuv420_to_rgb
+
+    monkeypatch.setenv("WSINSIGHT_WIRE", "yuv420")
+    assert _cell_wire() == "yuv420"
+    engine = CellEngine(load_local_model(*jax_cell_model), device="cpu")
+    x = np.random.default_rng(3).integers(0, 256, (2, 128, 128, 3), dtype=np.uint8)
+    packed = rgb_to_yuv420(x)
+    assert packed.shape == (2, 192, 128)
+    rebuilt = yuv420_to_rgb(torch.from_numpy(packed)).to(torch.uint8).numpy()
+    got, want = engine.run_batch(packed), engine.run_batch(rebuilt)
+    for key in (*MAPS, "tissue_types"):
+        assert torch.equal(got[key], want[key]), key
+    monkeypatch.setenv("WSINSIGHT_WIRE", "rgb")
+    assert _cell_wire() is None
+
+
+@pytest.mark.parametrize("var,value", [("WSINSIGHT_PRECISION", "high")])
 def test_cell_engine_refuses_unported_options(monkeypatch, jax_cell_model, var, value):
     monkeypatch.setenv(var, value)
     with pytest.raises(NotImplementedError, match="not yet ported"):

@@ -373,7 +373,6 @@ def test_source_input_options_match_jax(slides, compression, kwargs, image_hw, s
 @pytest.mark.parametrize("opts,item", [
     (dict(object_based=True, qupath_detection_dir="q"), 4),
     (dict(object_based=True, qupath_geojson_detection_dir="q"), 4),
-    (dict(object_based=True, object_detection="end2end", halo_size_px=46), 2),
     (dict(object_based=True, object_detection="stardist"), 7),
 ])
 def test_plan_slide_refuses_unported_planners(slides, opts, item):
@@ -388,10 +387,47 @@ def test_plan_slide_refuses_unported_planners(slides, opts, item):
                    thumbsize=(512, 512), **kw)
 
 
+@pytest.mark.parametrize("patch_px,halo,step", [(256, 46, 164), (128, 16, 96)])
+def test_plan_slide_halo_grid_matches_jax(slides, tmp_path, patch_px, halo, step):
+    """End2end cell models plan the halo grid: overlap 2*halo/patch, so the
+    step is patch - 2*halo; the same /coords, tile_dim and attrs as the JAX
+    package's patch stage, and no polygons."""
+    import h5py
+
+    from wsinsight_tpu.patchlib import segment_and_patch_one_slide as jax_patch
+    from wsinsight_tpu.uri_path import URIPath as JaxURIPath
+    from wsinsight_tpu_torch.patchlib import plan_slide, segment_and_patch_one_slide
+    from wsinsight_tpu_torch.uri_path import URIPath
+
+    opts = dict(qupath_detection_dir=None, qupath_geojson_detection_dir=None,
+                qupath_geojson_annotation_dir=None, patch_size_px=patch_px,
+                patch_spacing_um_px=0.25, halo_size_px=halo, thumbsize=(1024, 1024),
+                min_object_size_um2=50**2, min_hole_size_um2=10**2, object_based=True,
+                object_detection="end2end")
+    plan, ctx, *_ = plan_slide(URIPath(str(slides["deflate"])), **opts)
+    ctx.slide.close()
+    assert plan.polygons is None and plan.patch_size == patch_px and len(plan.coords) > 20
+    steps = np.diff(np.unique(plan.coords[:, 0]))
+    assert steps.min() == step
+    segment_and_patch_one_slide(URIPath(str(slides["deflate"])), URIPath(str(tmp_path / "p")),
+                                **opts)
+    jax_patch(slide_path=JaxURIPath(str(slides["deflate"])), save_dir=JaxURIPath(str(tmp_path / "j")),
+              **opts)
+    with h5py.File(tmp_path / "p" / "patches" / "tissue_deflate.h5", "r") as port, \
+            h5py.File(tmp_path / "j" / "patches" / "tissue_deflate.h5", "r") as jax:
+        np.testing.assert_array_equal(port["/coords"][()], plan.coords)
+        np.testing.assert_array_equal(port["/coords"][()], jax["/coords"][()])
+        np.testing.assert_array_equal(port["/coords"].attrs["tile_dim"], plan.tile_dim)
+        for group in ("/coords", "/slide"):
+            assert dict(port[group].attrs).keys() == dict(jax[group].attrs).keys()
+            for k, v in port[group].attrs.items():
+                np.testing.assert_array_equal(v, jax[group].attrs[k])
+        assert "/polygons" not in port and "/polygons" not in jax
+
+
 @pytest.mark.parametrize("kwargs,item", [
     (dict(qupath_detection_dir="q"), 4),
     (dict(qupath_geojson_annotation_dir="q"), 4),
-    (dict(object_based=True, object_detection="end2end"), 2),
     (dict(object_based=True, references_dir="r"), 4),
 ])
 def test_run_inference_refuses_unported_branches(tmp_path, kwargs, item):
@@ -432,7 +468,8 @@ def test_cli_refuses_unported_options(slides, tmp_path, args, item):
     assert not (tmp_path / "r" / "patches").exists()
 
 
-@pytest.mark.parametrize("model,item", [("CellViT-256-x40", 2)])
+@pytest.mark.parametrize("model,item", [("hovernet_fast_pannuke", 7),
+                                        ("CellViT-Virchow-x40-AMP", 8)])
 def test_cli_refuses_object_based_models(slides, tmp_path, model, item):
     from click.testing import CliRunner
 
@@ -514,3 +551,52 @@ def test_cli_requires_h5py(monkeypatch, slides, tmp_path):
                                        str(tmp_path / "r"), "-m", "breast-tumor-resnet34.tcga-brca"])
         assert res.exit_code == 1 and "needs h5py" in res.output, res.output
     assert not (tmp_path / "r").exists()
+
+
+def test_cli_runs_cell_model(tmp_path):
+    """`run` with an end2end cell model (the port's seeded CellViT-256 at
+    128 px, halo 16) plans the halo grid and writes one CSV row per nucleus
+    and the /polygons group, aligned with the rows. The HV head is zeroed,
+    as tests/test_cells.py does for its end-to-end run: random HV fields
+    leave no seeds."""
+    import json
+
+    import h5py
+    import pandas as pd
+    from click.testing import CliRunner
+
+    from wsinsight_tpu_torch.cli.cli import cli
+    from wsinsight_tpu_torch.wsi.tiff import write_pyramidal_tiff
+    from wsinsight_tpu_torch.zoo import make_random_local_model
+
+    cfg, weights = make_random_local_model("cellvit-256", 6, tmp_path / "m", patch_size_pixels=128)
+    config = json.loads(cfg.read_text())
+    config["halo_size_pixels"] = 16
+    cfg.write_text(json.dumps(config))
+    state = torch.load(weights)
+    for k in ("weight", "bias"):
+        state[f"hv_map_decoder.decoder0_header.2.{k}"].zero_()
+    torch.save(state, weights)
+    (tmp_path / "slides").mkdir()
+    write_pyramidal_tiff(str(tmp_path / "slides" / "cells.tif"), _tissue_image(768, seed=4),
+                         tile=(256, 256), compression="deflate", mpp=0.25, levels=2)
+    res = CliRunner().invoke(cli, [
+        "run", "-i", str(tmp_path / "slides"), "-o", str(tmp_path / "r"), "--config", str(cfg),
+        "--model-path", str(weights), "-b", "16", "--stitch-workers", "1",
+        "--seg-thumbsize", "512", "512", "--seg-min-object-size-um2", "2500",
+        "--seg-min-hole-size-um2", "100"], catch_exceptions=False)
+    assert res.exit_code == 0, res.output
+    df = pd.read_csv(tmp_path / "r" / "model-outputs-csv" / "cells.csv")
+    assert list(df.columns) == ["minx", "miny", "width", "height",
+                                *(f"prob_class{i}" for i in range(6))]
+    with h5py.File(tmp_path / "r" / "patches" / "cells.h5", "r") as f:
+        coords, offsets = f["/coords"][()], f["/polygons/offsets"][()]
+        rings = f["/polygons/coords"][()]
+    print(f"cell run: {len(coords)} patches, {len(df)} instances")
+    assert np.diff(np.unique(coords[:, 0])).min() == 96  # 128 - 2 * 16
+    assert len(df) > 0 and len(offsets) == len(df) + 1
+    for (x, y, w, h), a, b in zip(df[["minx", "miny", "width", "height"]].to_numpy(),
+                                  offsets[:-1], offsets[1:]):
+        ring = rings[a:b]
+        assert len(ring) >= 3 and (ring.min(0) >= (x, y)).all()
+        assert (ring.max(0) <= (x + w - 1, y + h - 1)).all()

@@ -165,6 +165,8 @@ PORT_MODULES = (
     "cli.patch", "cli.infer", "cli.run", "cli.cli", "__main__", "_version",
     # the host library and the classifier's input options
     "native", "ops.native_build", "ops.stain",
+    # the cell path's host half
+    "ops.watershed", "ops.hv_postproc", "ops.hv_device",
 )
 
 

@@ -387,18 +387,26 @@ def test_build_lands_in_build_dir_and_reports_jpeg():
     assert native.has_jpeg() == native_build.jpeg_available()
     assert ("-ljpeg" in native_build.command(path)) == native_build.jpeg_available()
     assert lib is native.get_lib()
+    # the watershed is in the one build, beside the decoders
+    assert str(native_build.NATIVE_DIR / "watershed.cpp") in native_build.command(path)
+    markers = np.zeros((4, 5), np.int32)
+    markers[0, 0], markers[3, 4] = 1, 2
+    out = native.watershed_native(np.zeros((4, 5), np.float32), markers, None)
+    assert set(np.unique(out)) == {1, 2}
 
 
-def test_bad_source_raises_with_compiler_output(tmp_path, monkeypatch):
+@pytest.mark.parametrize("broken", ["yuv.cpp", "watershed.cpp"])
+def test_bad_source_raises_with_compiler_output(tmp_path, monkeypatch, broken):
     from wsinsight_tpu_torch.ops import cuda_build, native_build
 
     src = tmp_path / "src"
     src.mkdir()
     for name in native_build.NATIVE_SOURCES:
-        (src / name).write_text("int broken( {\n" if name == "yuv.cpp" else "\n")
+        (src / name).write_text("int broken( {\n" if name == broken else "\n")
     monkeypatch.setattr(native_build, "NATIVE_DIR", src)
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
-    with pytest.raises(RuntimeError, match=r"g\+\+ failed on native:[\s\S]*yuv\.cpp[\s\S]*error"):
+    pattern = rf"g\+\+ failed on native:[\s\S]*{broken.replace('.', '[.]')}[\s\S]*error"
+    with pytest.raises(RuntimeError, match=pattern):
         native_build.build()
     assert not list((tmp_path / "build").iterdir())  # no library, no temporary left
 

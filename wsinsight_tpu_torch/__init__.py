@@ -17,7 +17,11 @@ segmentation and the patch grid (``patchlib``), the threaded decode
 (``engine.data``), ``engine.runner.run_inference`` and the ``patch`` /
 ``infer`` / ``run`` CLI (``python -m wsinsight_tpu_torch``); the native
 decoders (``native``) and the classifier's input options: host resize, the
-YUV 4:2:0 wire, the DCT half decode and stain normalization (``ops.stain``).
+YUV 4:2:0 wire, the DCT half decode and stain normalization (``ops.stain``);
+and the cell path's host half, slide to nuclei: the halo grid, the
+stitcher's tiled watershed finalize (``ops.hv_postproc``, ``ops.watershed``
+on the native watershed, ``ops.hv_device``) and ``engine.cells.
+run_cell_inference`` behind ``run_inference``'s end2end branch.
 """
 
 __version__ = "0.1.0"

@@ -259,11 +259,19 @@ def require_h5py() -> None:
         ) from err
 
 
-def refuse_unported_model(flags: dict) -> None:
-    """click.UsageError for a model whose path the port does not have: cell
-    models (end2end, item 2; StarDist pre-detection, item 7)."""
-    if flags["object_based"]:
-        od = flags["object_detection"]
-        raise click.UsageError(
-            not_ported(f"object-based models (object_detection={od!r})", 2 if od == "end2end" else 7)
-        )
+# Cell architectures of the registry whose model waits for a Queue 1 item.
+_UNPORTED_CELL_ARCHITECTURES = {"hovernet_fast": 7, "cellvit_virchow": 8}
+
+
+def refuse_unported_model(flags: dict, architecture: str) -> None:
+    """click.UsageError, before any stage runs, for a cell model whose path
+    the port does not have: StarDist pre-detection and HoVer-Net (item 7),
+    Virchow's encoder (item 8). End2end CellViT models run."""
+    if not flags["object_based"]:
+        return
+    od = flags["object_detection"]
+    if od != "end2end":
+        raise click.UsageError(not_ported(f"object-based models (object_detection={od!r})", 7))
+    item = _UNPORTED_CELL_ARCHITECTURES.get(architecture.lower().replace("-", "_"))
+    if item is not None:
+        raise click.UsageError(not_ported(f"the {architecture} cell model", item))

@@ -7,9 +7,11 @@ variable bound only in QuPath branches.
 
 Counterpart of wsinsight_tpu/cli/infer.py, with the same options. The port
 runs patch classification into the model-output CSVs, with --fast-input and
-stain-normalized models; the exporters, QuPath pseudo-models, the analytics
-and object-based models raise ``click.UsageError`` naming their ROADMAP.md
-item (``_options``). Reading the patch files needs h5py.
+stain-normalized models, and end2end cell models (CellViT: one row per
+nucleus, the polygons into the patch files); the exporters, QuPath
+pseudo-models, the analytics and StarDist models raise ``click.UsageError``
+naming their ROADMAP.md item (``_options``). Reading the patch files needs
+h5py.
 """
 
 from __future__ import annotations
@@ -161,7 +163,7 @@ def infer(
     opt.refuse_unported(ctx.params)
     model_obj = opt.resolve_model(model_name, config, model_path)
     flags = opt.model_flags(model_obj)
-    opt.refuse_unported_model(flags)
+    opt.refuse_unported_model(flags, model_obj.config.architecture)
     opt.require_h5py()
 
     if num_workers is None:

@@ -5,9 +5,9 @@ with the registered-model branch defect fixed (flags default from the model
 config instead of being left unbound, SURVEY.md §2.11).
 
 Counterpart of wsinsight_tpu/cli/patch.py, with the same options. The port
-plans the tissue grid of classifier models; the QuPath directories and
-object-based models raise ``click.UsageError`` (``_options.refuse_unported``).
-Writing the patch files needs h5py.
+plans the tissue grid of classifier models and the halo grid of end2end cell
+models; the QuPath directories and StarDist models raise
+``click.UsageError`` (``_options``). Writing the patch files needs h5py.
 """
 
 from __future__ import annotations
@@ -100,7 +100,7 @@ def patch(
 
     model_obj = opt.resolve_model(model_name, config, model_path)
     flags = opt.model_flags(model_obj)
-    opt.refuse_unported_model(flags)
+    opt.refuse_unported_model(flags, model_obj.config.architecture)
     opt.require_h5py()
 
     print_system_info()

@@ -1,32 +1,47 @@
-"""Single-cell (object-based end2end) inference: the CellViT engine.
+"""Single-cell (object-based end2end) inference: CellViT -> stitcher -> instances.
 
-Counterpart of ``CellEngine`` in wsinsight_tpu/engine/cells.py, with the
-same surface (``config``, ``n_devices``, ``pad_batch``, ``run_batch``) plus
-``put`` / ``dispatch`` as in ``ClassifierEngine``. ``run_cell_inference``
-drives it one batch deep with the stitcher's device half::
+Counterpart of wsinsight_tpu/engine/cells.py. ``CellEngine`` has the JAX
+engine's surface (``config``, ``n_devices``, ``pad_batch``, ``run_batch``)
+plus ``put`` / ``dispatch`` as in ``ClassifierEngine``. ``stitch_slide``
+drives it over one slide's patch source one batch deep with the stitcher's
+device half::
 
     pending = None
-    for batch in batches:
+    for batch in src:
         pred = engine.dispatch(engine.put(batch.images))
         maps = stitcher.device_postprocess(pred)  # enqueued, not waited for
         if pending is not None:
             stitcher.scatter(*pending)  # the previous batch's transfer
         pending = (maps, batch.coords, batch.n_valid)
 
-The slide I/O and the host finalize around it are not ported yet
-(``ROADMAP.md``, Queue 1, items 1 and 2).
+``run_cell_inference`` builds the stitcher and the source of one slide, runs
+``stitch_slide`` and the stitcher's ``finalize`` (the tiled watershed on host
+threads), and returns the slide's instances.
+
+The JAX package runs its banded streaming engine by default
+(WSINSIGHT_STREAM_CELLS=1); the port has only the host-canvas engine
+(ROADMAP.md Queue 1, item 6), which gives the same instances, and runs it
+whatever the variable says.
 """
 
 from __future__ import annotations
 
+import os
+from typing import Iterator, List
+
 import numpy as np
 import torch
+import tqdm
 
 from ..models import create_model
-from ..ops.preprocess import TransformSpec, make_preprocess_fn
+from ..ops.preprocess import TransformSpec, make_preprocess_fn, yuv420_to_rgb
 from ..parallel.mesh import pad_to_multiple, resolve_device
+from ..uri_path import URIPath
+from ..utils.workers import governed_workers
 from ..zoo import ModelHandle, randomize_cell_model
+from .data import Batch, PatchBatchSource
 from .runner import _refuse_unported_options
+from .stitch import TileRemapStitcher
 
 
 class CellEngine:
@@ -52,7 +67,7 @@ class CellEngine:
         device: str | torch.device | None = None,
         seed: int = 0,
     ):
-        _refuse_unported_options(classifier=False)
+        _refuse_unported_options()
         self.device = resolve_device(device)
         self.n_devices = 1  # one device in this slice; max_devices has nothing to cut
         cfg = model_info.config
@@ -79,11 +94,16 @@ class CellEngine:
 
     def _step(self, batch_u8: torch.Tensor) -> dict[str, torch.Tensor]:
         with torch.inference_mode():
+            if batch_u8.dim() == 3:
+                # YUV 4:2:0 wire (WSINSIGHT_WIRE=yuv420): RGB is rebuilt on
+                # the device; the rank says which format came.
+                batch_u8 = yuv420_to_rgb(batch_u8).to(torch.uint8)
             return self.model(self._preprocess(batch_u8))
 
     def put(self, images_u8: np.ndarray) -> torch.Tensor:
-        """Host -> device copy of a (B, H, W, 3) uint8 batch: pinned and
-        non-blocking on CUDA, so it returns before the copy ends."""
+        """Host -> device copy of a (B, H, W, 3) uint8 batch, or of a
+        (B, H*3/2, W) batch on the YUV 4:2:0 wire: pinned and non-blocking on
+        CUDA, so it returns before the copy ends."""
         host = torch.from_numpy(np.ascontiguousarray(images_u8))
         if self.device.type != "cuda":
             return host.to(self.device)
@@ -94,7 +114,122 @@ class CellEngine:
         return self._step(images)
 
     def run_batch(self, images_u8: np.ndarray) -> dict[str, torch.Tensor]:
-        """(B, P, P, 3) uint8 -> the model's output dict, on the device:
-        channel-first float32 maps cropped to the halo interior and the
-        tissue logits."""
+        """(B, P, P, 3) uint8 (or the YUV wire's (B, P*3/2, P)) -> the
+        model's output dict, on the device: channel-first float32 maps cropped
+        to the halo interior and the tissue logits."""
         return self._step(self.put(images_u8))
+
+
+def _cell_wire() -> str | None:
+    """Cell-path wire format from WSINSIGHT_WIRE (yuv420 or exact RGB).
+
+    The lossy half-scale decode is classifier-only (cell models consume the
+    full-resolution patch — there is no downstream resize to hide it), so
+    cell sources pin decode_scale=1 and take only the wire choice from env.
+    """
+    return "yuv420" if os.getenv("WSINSIGHT_WIRE", "").lower() == "yuv420" else None
+
+
+def stitch_slide(
+    engine: CellEngine,
+    stitcher: TileRemapStitcher,
+    src: PatchBatchSource,
+    it: Iterator[Batch] | None = None,
+) -> None:
+    """One slide's patches through ``engine`` into ``stitcher``'s canvases.
+
+    One batch deep: batch i+1's forward and device post-process are
+    enqueued before batch i's maps are fetched and scattered. ``it`` is an
+    iterator of ``src`` already started."""
+    pending = None  # (device maps, coords, n_valid)
+    with tqdm.tqdm(total=src.num_batches, desc="Inference", position=1, leave=False) as qbar:
+        for batch in (iter(src) if it is None else it):
+            pred = engine.dispatch(engine.put(batch.images))
+            # The maps stay on the device; only the resized ones cross to
+            # the host, once per batch.
+            maps = stitcher.device_postprocess(
+                {k: v for k, v in pred.items() if k != "tissue_types"})
+            if pending is not None:
+                stitcher.scatter(*pending)
+                qbar.update(1)
+            pending = (maps, batch.coords, batch.n_valid)
+        if pending is not None:
+            stitcher.scatter(*pending)
+            qbar.update(1)
+
+
+def make_slide_stitcher(
+    engine: CellEngine,
+    slide_width: int,
+    slide_height: int,
+    mpp: float,
+    halo_size_px: int,
+    min_object_size: int = 20,
+) -> TileRemapStitcher:
+    """The stitcher of one slide at ``mpp``. Geometry contract of the
+    reference (run_inference.py:309-311): the model's maps cover
+    patch_px - 2*halo px at its spacing, scaled to slide pixels by
+    spacing/mpp. Its transfer dtype is the quantized default (uint8 NP/TP,
+    bf16 HV; WSINSIGHT_CELL_TRANSFER overrides it), its ridge device the
+    engine's."""
+    cfg = engine.config
+    model_output_size_px = cfg.patch_size_pixels - 2 * halo_size_px
+    return TileRemapStitcher(
+        n_classes=cfg.num_classes,
+        slide_width=slide_width,
+        slide_height=slide_height,
+        slide_patch_size=int(round(model_output_size_px * cfg.spacing_um_px / mpp)),
+        slide_halo_size=int(round(halo_size_px * cfg.spacing_um_px / mpp)),
+        slide_mpp=mpp,
+        model_mpp=cfg.spacing_um_px,
+        min_object_size=min_object_size,
+        device=engine.device,
+    )
+
+
+def run_cell_inference(
+    engine: CellEngine,
+    *,
+    wsi_path: URIPath,
+    patch_path: URIPath,
+    use_hdf5_images: bool,
+    slide_width: int,
+    slide_height: int,
+    mpp: float,
+    halo_size_px: int,
+    batch_size: int,
+    num_workers: int,
+    stitch_workers: int | None,
+    min_object_size: int = 20,
+) -> tuple[np.ndarray, np.ndarray, List[np.ndarray]]:
+    """Run the model over all patches and stitch instances.
+
+    Returns (coords (N,4) [x,y,w,h], probs (N,K), polygons list[(Mi,2)]).
+    Geometry contract matches the reference (run_inference.py:309-311):
+    model_output = patch_px - 2*halo; slide sizes scaled by spacing/mpp.
+    """
+    cfg = engine.config
+    stitcher = make_slide_stitcher(engine, slide_width, slide_height, mpp, halo_size_px,
+                                   min_object_size)
+    src = None
+    try:
+        src = PatchBatchSource(
+            wsi_path=wsi_path,
+            patch_path=patch_path,
+            use_hdf5_images=use_hdf5_images,
+            batch_size=engine.pad_batch(batch_size),
+            num_threads=governed_workers(num_workers or 4),
+            wire=_cell_wire(),
+            decode_scale=1,  # cell models take full-res patches (no resize)
+        )
+        stitch_slide(engine, stitcher, src)
+        with tqdm.tqdm(desc="Stitching", position=1, leave=False) as qbar:
+            inst, probs, polys = stitcher.finalize(pbar=qbar, num_workers=stitch_workers)
+    finally:
+        if src is not None:
+            src.close()
+        stitcher.close()
+
+    if not inst:
+        return np.zeros((0, 4), np.int32), np.zeros((0, cfg.num_classes), np.float32), []
+    return np.concatenate(inst, axis=0), np.concatenate(probs, axis=0), polys

@@ -25,11 +25,12 @@ slide by ``set_stains``) it normalizes the stains before the preprocess.
 classification) with its stain normalization, host resize
 (WSINSIGHT_HOST_RESIZE) and wire (WSINSIGHT_WIRE) read per slide, its
 cross-slide source prefetch, resume and CSV schema
-(``minx,miny,width,height,prob_<class>...``). Its other branches raise
+(``minx,miny,width,height,prob_<class>...``), and its end2end cell branch
+(``engine/cells.run_cell_inference``: one CSV row per nucleus, the polygons
+into the patch file's ``/polygons`` group). Its other branches raise
 ``NotImplementedError`` naming the ROADMAP.md Queue 1 item they wait for:
-the QuPath pseudo-models and the references overlay (item 4) and end2end
-cells (item 2). Multi-host fan-out (item 10) is not ported; each process runs
-every slide it is given.
+the QuPath pseudo-models and the references overlay (item 4). Multi-host
+fan-out (item 10) is not ported; each process runs every slide it is given.
 """
 
 from __future__ import annotations
@@ -68,11 +69,9 @@ from .data import Batch, PatchBatchSource
 logger = logging.getLogger(__name__)
 
 
-def _refuse_unported_options(classifier: bool = True) -> None:
-    """Options of the JAX engines not ported yet: WSINSIGHT_PRECISION (its
-    torch values are not defined yet), and the cell engine's YUV wire."""
-    if not classifier and os.getenv("WSINSIGHT_WIRE", "").lower() == "yuv420":
-        raise NotImplementedError(not_ported("the cell engine's WSINSIGHT_WIRE=yuv420", 2))
+def _refuse_unported_options() -> None:
+    """The option of the JAX engines not ported yet: WSINSIGHT_PRECISION (its
+    torch values are not defined yet)."""
     if os.getenv("WSINSIGHT_PRECISION"):
         raise NotImplementedError(not_ported("WSINSIGHT_PRECISION", 5))
 
@@ -264,8 +263,6 @@ def run_inference(
     the CPU."""
     if qupath_detection_dir or qupath_geojson_detection_dir or qupath_geojson_annotation_dir:
         raise NotImplementedError(not_ported("the QuPath pseudo-models", 4))
-    if object_based and object_detection == "end2end":
-        raise NotImplementedError(not_ported("end2end cell inference", 2))
     if references_dir is not None and object_based:
         raise NotImplementedError(not_ported("the references overlay", 4))
 
@@ -300,6 +297,8 @@ def run_inference(
     failed_patching = [p.stem for p in patch_paths if not p.exists()]
     failed_inference: list[str] = []
     engine: ClassifierEngine | None = None
+    cells = object_based and object_detection == "end2end"
+    cell_engine = None
 
     # Cross-slide overlap: while slide i drains, a background thread opens
     # slide i+1's patch source and STARTS its decode producer, so the first
@@ -344,6 +343,29 @@ def run_inference(
             if slide_csv.exists():
                 print("Output CSV exists... skipping.")
                 print(slide_csv)
+                pbar.update(1)
+                continue
+
+            if cells:
+                # CellViT single-cell path (reference: :431-535): one engine
+                # for every slide; a slide that fails is logged and listed.
+                from .cells import CellEngine
+
+                if cell_engine is None:
+                    cell_engine = CellEngine(model_info, mixed_precision=mixed_precision,
+                                             device=device)
+                    logger.info(
+                        "cells run on the host-canvas engine: the banded streaming engine"
+                        " that WSINSIGHT_STREAM_CELLS="
+                        f"{os.getenv('WSINSIGHT_STREAM_CELLS', '1')!r} selects in the JAX"
+                        " package is not ported (ROADMAP.md, Queue 1, item 6); both give"
+                        " the same instances")
+                if not _run_cell_slide(cell_engine, wsi_path, patch_path, use_hdf5_images,
+                                       slide_csv, model_info.config.class_names,
+                                       halo_size_px=halo_size_px, batch_size=batch_size,
+                                       num_workers=num_workers,
+                                       stitch_workers=stitch_workers):
+                    failed_inference.append(wsi_path.stem)
                 pbar.update(1)
                 continue
 
@@ -441,6 +463,38 @@ def run_inference(
         prefetched.clear()
 
     return failed_patching, failed_inference
+
+
+def _run_cell_slide(engine, wsi_path, patch_path, use_hdf5_images, slide_csv, class_names,
+                    **run_opts) -> bool:
+    """One slide through ``run_cell_inference``: its instances' polygons into
+    the patch file's ``/polygons`` group, one CSV row per instance. False
+    (logged) when the slide's inference fails."""
+    import h5py
+
+    from .cells import run_cell_inference
+    from ..patchlib.io import write_polygons_group
+
+    local = patch_path.materialize() if isinstance(patch_path, URIPath) else patch_path
+    with h5py.File(local, "r") as f:
+        g = f["/slide"]
+        geometry = dict(mpp=float(g.attrs["slide_mpp"]),
+                        slide_width=int(g.attrs["slide_width"]),
+                        slide_height=int(g.attrs["slide_height"]))
+    try:
+        coords_arr, probs_arr, polys = run_cell_inference(
+            engine, wsi_path=wsi_path, patch_path=patch_path,
+            use_hdf5_images=use_hdf5_images, **geometry, **run_opts)
+    except Exception as err:
+        logger.error(f"cell inference failed for {wsi_path}", exc_info=err)
+        return False
+    if polys:
+        with patch_path.open("rb+" if patch_path.exists() else "wb+") as fh:
+            with h5py.File(fh, "a") as f:
+                write_polygons_group(f, polys, f["/coords"].compression)
+    if len(coords_arr):
+        write_slide_csv(slide_csv, coords_arr, probs_arr, class_names)
+    return True
 
 
 def _slide_attrs(patch_path) -> tuple[URIPath, bool]:

@@ -1,12 +1,15 @@
-"""Slide-scale canvas stitcher for single-cell models: the device half.
+"""Slide-scale canvas stitcher for single-cell models.
 
 Counterpart of wsinsight_tpu/engine/stitch.py. Per batch, on the model's
 device: softmax, bilinear resize of the patch maps to slide space, HV scaling
 by model_mpp/slide_mpp and per-pixel TP renormalisation
 (``make_map_postprocess``); then one transfer of the resized maps, in the
-chosen dtype, into host canvases (``scatter``). The host finalize, the tiled
-watershed instance extraction, is not ported yet (``ROADMAP.md``, Queue 1,
-item 2).
+chosen dtype, into host canvases (``scatter``). Once every batch is in,
+``finalize`` extracts the nucleus instances tile by tile (2048^2 tiles with
+64 px of context) on a pool of host threads: cv2 and numpy, with the host
+library's C++ watershed (``ops/hv_postproc.py``). With
+WSINSIGHT_DEVICE_RIDGE=1 the tiles' wide-Sobel energy runs batched in torch
+on the stitcher's device (``ops/hv_device.py``).
 
 Memory note: the canvases are (H, W) f32 + (H, W, 2) f32 + (H, W, K) f32,
 (12+4K) bytes/px; above WSINSIGHT_CANVAS_MEMMAP_BYTES they are backed by
@@ -16,11 +19,17 @@ disk memmaps.
 from __future__ import annotations
 
 import os
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..ops.hv_postproc import extract_instances
 from ..ops.resize import resize_axis
+from ..parallel.mesh import resolve_device
 
 TRANSFER_DTYPES = ("quantized", "bfloat16", "float32")
 
@@ -52,7 +61,13 @@ def make_map_postprocess(slide_patch_size: int, alpha: float):
 
 
 class TileRemapStitcher:
-    """Accumulate per-patch prediction maps into slide canvases."""
+    """Accumulate per-patch prediction maps into slide canvases, then extract
+    nucleus instances tile by tile.
+
+    ``device`` is where finalize's optional ridge (WSINSIGHT_DEVICE_RIDGE=1)
+    runs, by ``parallel.mesh.resolve_device``'s rule: the card unless the
+    caller asks for the CPU. The device half runs wherever its input
+    tensors are."""
 
     def __init__(
         self,
@@ -66,6 +81,7 @@ class TileRemapStitcher:
         min_object_size: int = 20,
         memmap_above_bytes: int | None = None,
         transfer_dtype: str | None = None,
+        device: str | torch.device | None = None,
     ):
         # Map-transfer dtype: "quantized" (default) sends probabilities as
         # uint8 (step 1/255) and HV as bf16, ~4.5x fewer bytes than f32 at
@@ -83,6 +99,7 @@ class TileRemapStitcher:
         self.slide_halo_size = slide_halo_size
         self.alpha = model_mpp / slide_mpp
         self.min_object_size = int(min_object_size)
+        self.device = device
         if memmap_above_bytes is None:
             memmap_above_bytes = int(
                 os.getenv("WSINSIGHT_CANVAS_MEMMAP_BYTES", 32 * (1 << 30))
@@ -183,9 +200,128 @@ class TileRemapStitcher:
         """Device post-process one batch and scatter it (synchronous form)."""
         self.scatter(self.device_postprocess(pred_dict), batch_coords, n_valid)
 
-    def finalize(self, *args, **kwargs):
-        """Tiled watershed instance extraction: not ported yet."""
-        raise NotImplementedError(
-            "TileRemapStitcher.finalize (hv_postproc, watershed) is not yet ported to"
-            " torch (ROADMAP.md, Queue 1, item 2: the cell path's host half)"
-        )
+    # ------------------------------------------------------------------
+    def finalize(
+        self,
+        tile_size: int = 2048,
+        padding_size: int = 64,
+        pbar=None,
+        num_workers: Optional[int] = None,
+    ) -> Tuple[List[np.ndarray], List[np.ndarray], List[np.ndarray]]:
+        """Tile the canvases (with context padding) and extract instances.
+
+        Returns aligned lists of (1, 4) [x, y, w, h] boxes, (1, K) class
+        probabilities and (M, 2) polygons in slide coordinates. Each worker
+        merges its tiles' instances when it finishes, so with more than one
+        worker their order differs from run to run; the set does not."""
+        h, w = self.slide_height, self.slide_width
+        if h <= 0 or w <= 0:
+            return [], [], []
+
+        jobs: List[tuple] = []
+        for interior_y0 in range(0, h, tile_size):
+            for interior_x0 in range(0, w, tile_size):
+                interior_y1 = min(interior_y0 + tile_size, h)
+                interior_x1 = min(interior_x0 + tile_size, w)
+                pad_y0 = max(0, interior_y0 - padding_size)
+                pad_y1 = min(interior_y1 + padding_size, h)
+                pad_x0 = max(0, interior_x0 - padding_size)
+                pad_x1 = min(interior_x1 + padding_size, w)
+                inner_y0 = interior_y0 - pad_y0
+                inner_x0 = interior_x0 - pad_x0
+                inner_y1 = inner_y0 + (interior_y1 - interior_y0)
+                inner_x1 = inner_x0 + (interior_x1 - interior_x0)
+                jobs.append(
+                    (pad_y0, pad_y1, pad_x0, pad_x1, interior_y0, interior_x0,
+                     inner_y0, inner_y1, inner_x0, inner_x1)
+                )
+
+        # Optional device half of post-processing: the wide-Sobel separation
+        # energy (the dense, expensive stage) computed batched on the device
+        # for all full-size tiles (WSINSIGHT_DEVICE_RIDGE=1). Edge tiles with
+        # irregular shapes keep the CPU path so per-tile min-max
+        # normalization is untouched.
+        energy_for_job: dict[int, np.ndarray] = {}
+        if os.getenv("WSINSIGHT_DEVICE_RIDGE", "0") not in ("0", ""):
+            from ..ops.hv_device import separation_energy_batched
+
+            device = resolve_device(self.device)
+            shapes = [(j[1] - j[0], j[3] - j[2]) for j in jobs]
+            full = max(set(shapes), key=shapes.count)
+            batch_idx = [i for i, s in enumerate(shapes) if s == full]
+            chunk = min(8, len(batch_idx))
+            for c0 in range(0, len(batch_idx), chunk):
+                sel = batch_idx[c0 : c0 + chunk]
+                hv_batch = np.stack(
+                    [
+                        np.ascontiguousarray(
+                            self.hv_map[jobs[i][0] : jobs[i][1], jobs[i][2] : jobs[i][3], :]
+                        )
+                        for i in sel
+                    ]
+                )
+                if len(sel) < chunk:  # pad the tail: every chunk has one shape
+                    hv_batch = np.concatenate(
+                        [hv_batch, np.zeros((chunk - len(sel), *hv_batch.shape[1:]), hv_batch.dtype)]
+                    )
+                for i, e in zip(sel, separation_energy_batched(hv_batch, device)):
+                    energy_for_job[i] = e
+
+        if num_workers is None or num_workers <= 0:
+            # Adaptive sizing from CPU/RAM headroom (utils/workers.py), capped
+            # at cpu-2 like the reference (tilefuse.py:346-347).
+            from ..utils.workers import pick_workers_safe
+
+            num_workers = pick_workers_safe(
+                max_workers=max(1, (os.cpu_count() or 1) - 2), min_workers=1
+            )
+
+        inst_all: List[np.ndarray] = []
+        prob_all: List[np.ndarray] = []
+        poly_all: List[np.ndarray] = []
+        merge_lock = threading.Lock()
+        q: queue.Queue = queue.Queue()
+        for ji, j in enumerate(jobs):
+            q.put((ji, j))
+        for _ in range(num_workers):
+            q.put(None)
+
+        def worker() -> None:
+            local: list[tuple] = []
+            while True:
+                item = q.get()
+                if item is None:
+                    break
+                ji, job = item
+                (pad_y0, pad_y1, pad_x0, pad_x1, interior_y0, interior_x0,
+                 inner_y0, inner_y1, inner_x0, inner_x1) = job
+                np_tile = np.ascontiguousarray(self.np_map[pad_y0:pad_y1, pad_x0:pad_x1])
+                hv_tile = np.ascontiguousarray(self.hv_map[pad_y0:pad_y1, pad_x0:pad_x1, :])
+                tp_tile = np.ascontiguousarray(self.tp_map[pad_y0:pad_y1, pad_x0:pad_x1, :])
+                ins, prb, ply = extract_instances(
+                    np_tile,
+                    hv_tile,
+                    tp_tile,
+                    interior_y0,
+                    interior_x0,
+                    (slice(inner_y0, inner_y1), slice(inner_x0, inner_x1)),
+                    self.min_object_size,
+                    raw_energy=energy_for_job.get(ji),
+                )
+                if ins:
+                    local.append((ins, prb, ply))
+                if pbar is not None:
+                    pbar.update(1)
+            if local:
+                with merge_lock:
+                    for ins, prb, ply in local:
+                        inst_all.extend(ins)
+                        prob_all.extend(prb)
+                        poly_all.extend(ply)
+
+        with ThreadPoolExecutor(max_workers=num_workers) as ex:
+            futs = [ex.submit(worker) for _ in range(num_workers)]
+            for f in futs:
+                f.result()
+
+        return inst_all, prob_all, poly_all

@@ -49,10 +49,10 @@ class BackendNotAvailable(WsinsightException):
 
 # Queue 1 items of ROADMAP.md that parts of the JAX package wait for in the port.
 _QUEUE_1 = {
-    2: "the cell path's host half",
     4: "infer's exporters and side branches",
     5: "WSINSIGHT_PRECISION, the one classifier option left",
     7: "HoVer-Net and StarDist",
+    8: "Virchow's DINOv2 ViT and FoundationViT",
     9: "the analytics and their CLI",
     10: "scale and tooling",
 }

@@ -1,9 +1,9 @@
 """The port's host library (C++, loaded with ctypes): tile decode, LZW, the
-PIL-exact uint8 resize and the YUV 4:2:0 packer.
+PIL-exact uint8 resize, the YUV 4:2:0 packer and the watershed.
 
 Counterpart of wsinsight_tpu/native/__init__.py for ``tiledec.cpp``,
-``lzw.cpp``, ``resize.cpp`` and ``yuv.cpp`` (copies of the JAX package's
-sources). ``ops.native_build`` compiles them at first use into
+``lzw.cpp``, ``resize.cpp``, ``yuv.cpp`` and ``watershed.cpp`` (copies of the
+JAX package's sources). ``ops.native_build`` compiles them at first use into
 ``build/wsinsight_tpu_torch/``. Unlike the JAX package, a library that does
 not build or load raises (with the compiler's or loader's message): nothing
 here returns None for a missing library. Functions still return None for an
@@ -49,6 +49,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pil_resize_u8_batch.restype = i32
     lib.rgb_to_yuv420_batch.argtypes = [u8p, i64, i32, i32, u8p]
     lib.rgb_to_yuv420_batch.restype = i32
+    f32p = ctypes.POINTER(ctypes.c_float)
+    lib.watershed_f32.argtypes = [f32p, i32p, u8p, i32, i32, i32p]
+    lib.watershed_f32.restype = None
     return lib
 
 
@@ -84,6 +87,35 @@ def lzw_decode_native(data: bytes, expected_size: int) -> bytes | None:
     if n < 0:
         return None
     return out[:n].tobytes()
+
+
+def watershed_native(
+    image: np.ndarray, markers: np.ndarray, mask: np.ndarray | None
+) -> np.ndarray:
+    """The priority-flood watershed of ``watershed.cpp`` (skimage semantics,
+    connectivity 1, ties broken by age): (H, W) float32 image, int32 markers
+    (> 0 seeds), uint8 mask (0 excluded; None for everything) -> (H, W) int32
+    labels."""
+    lib = get_lib()
+    h, w = image.shape
+    image = np.ascontiguousarray(image, np.float32)
+    markers = np.ascontiguousarray(markers, np.int32)
+    if markers.shape != (h, w) or (mask is not None and np.shape(mask) != (h, w)):
+        raise ValueError(f"watershed_native: markers and mask must be {(h, w)}")
+    if mask is None:
+        mask_arr = np.ones((h, w), np.uint8)
+    else:
+        mask_arr = np.ascontiguousarray(mask, np.uint8)
+    out = np.zeros((h, w), np.int32)
+    lib.watershed_f32(
+        _ptr(image, ctypes.c_float),
+        _ptr(markers, ctypes.c_int32),
+        _ptr(mask_arr, ctypes.c_uint8),
+        h,
+        w,
+        _ptr(out, ctypes.c_int32),
+    )
+    return out
 
 
 @functools.lru_cache(maxsize=64)

@@ -14,8 +14,8 @@ slide with the very code the CLI runs. The five modes:
 4. StarDist pre-detection (reference: :299-355)
 5. default tissue grid with per-tile polygons + tile_dim (reference: :357-402)
 
-The port has mode 5; modes 1-4 raise ``NotImplementedError`` naming the
-ROADMAP.md item they wait for.
+The port has modes 3 and 5; modes 1, 2 and 4 raise ``NotImplementedError``
+naming the ROADMAP.md item they wait for.
 
 Also fixes a latent reference defect: the patch stage writes
 ``results_dir/wsi_list.csv``, which downstream QuPath pseudo-model branches
@@ -110,9 +110,23 @@ def _plan_qupath_geojson(ctx: _SlideContext) -> Optional[PatchPlan]:
 
 
 def _plan_halo_grid(ctx: _SlideContext) -> Optional[PatchPlan]:
-    """Mode 3: the halo-overlapped grid of end2end cell models (JAX package:
-    patchlib/pipeline.py:169-186)."""
-    raise NotImplementedError(not_ported("the halo grid of the cell path", 2))
+    """Mode 3: end2end cell models — tissue grid whose overlap equals twice
+    the model halo so detection cores tile seamlessly (reference: :261-297).
+    At 256 px with a 46 px halo the step is 164 px."""
+    width, height = ctx.dims
+    half = round(ctx.patch_size / 2)
+    overlap = 2 * ctx.opts["halo_size_px"] / ctx.opts["patch_size_px"]
+    coords = get_patch_coordinates_within_polygon(
+        slide_width=width, slide_height=height,
+        patch_size=ctx.patch_size, half_patch_size=half,
+        polygon=ctx.polygon, overlap=overlap,
+    )
+    step = round((1 - overlap) * ctx.patch_size)
+    logger.info(f"{len(coords)} patches land inside tissue")
+    return PatchPlan(
+        coords, tile_dim=_grid_tile_dim(width, height, half, step),
+        patch_size=ctx.patch_size,
+    )
 
 
 def _plan_stardist(ctx: _SlideContext) -> Optional[PatchPlan]:

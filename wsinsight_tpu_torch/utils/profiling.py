@@ -7,13 +7,16 @@ the rebuild adds:
   metadata JSON,
 * `maybe_trace` — the stage timer around a stage. The JAX package also
   writes a profiler trace when WSINSIGHT_PROFILE=<dir> is set; the port
-  does not yet, and refuses the variable rather than ignore it.
+  does not yet, and refuses the variable rather than ignore it,
+* `hot_stage` / `hot_stage_report` — wall seconds per hot-loop stage (the
+  HV post-processing tail), accumulated when WSINSIGHT_STREAM_PROFILE=1.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from typing import Iterator
 
@@ -33,6 +36,46 @@ def stage_timer(name: str) -> Iterator[None]:
 
 def stage_timings() -> dict[str, float]:
     return {k: round(v, 3) for k, v in _STAGE_TIMINGS.items()}
+
+
+# -- fine-grained hot-loop stage profiling (WSINSIGHT_STREAM_PROFILE=1) ------
+# Used by the HV post-processing tail: one perf_counter pair per stage call
+# when enabled, zero work when not (the flag is read once at import).
+# Thread-safe: finalize's workers run the tail concurrently.
+
+_PROF_ENABLED = os.getenv("WSINSIGHT_STREAM_PROFILE", "0") not in ("0", "")
+_PROF: dict[str, float] = {}
+_PROF_LOCK = threading.Lock()
+
+
+class hot_stage:
+    """Context manager accumulating wall seconds under `name` when enabled."""
+
+    __slots__ = ("name", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        if _PROF_ENABLED:
+            self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if _PROF_ENABLED:
+            dt = time.perf_counter() - self.t0
+            with _PROF_LOCK:
+                _PROF[self.name] = _PROF.get(self.name, 0.0) + dt
+        return False
+
+
+def hot_stage_report(reset: bool = True) -> dict[str, float]:
+    """Cumulative stage seconds since the last reset (empty unless enabled)."""
+    with _PROF_LOCK:
+        out = dict(sorted(_PROF.items(), key=lambda kv: -kv[1]))
+        if reset:
+            _PROF.clear()
+    return out
 
 
 @contextlib.contextmanager
