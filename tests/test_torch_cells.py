@@ -296,10 +296,12 @@ def test_cell_engine_takes_the_yuv_wire(monkeypatch, jax_cell_model):
     assert _cell_wire() is None
 
 
-@pytest.mark.parametrize("var,value", [("WSINSIGHT_PRECISION", "high")])
+@pytest.mark.parametrize("var,value", [("WSINSIGHT_PRECISION", "fastest")])
 def test_cell_engine_refuses_unported_options(monkeypatch, jax_cell_model, var, value):
+    """A WSINSIGHT_PRECISION value without a torch meaning raises ValueError
+    when the engine is built."""
     monkeypatch.setenv(var, value)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match=f"{var}={value!r}"):
         CellEngine(load_local_model(*jax_cell_model), device="cpu")
 
 

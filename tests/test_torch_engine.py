@@ -140,13 +140,15 @@ def test_device_rule(two_class, monkeypatch):
 
 @pytest.mark.parametrize(
     "env,kwargs",
-    [(("WSINSIGHT_PRECISION", "float32"), {})],
+    [(("WSINSIGHT_PRECISION", "bfloat16"), {})],
     ids=["precision"],
 )
 def test_unported_options_raise(two_class, monkeypatch, env, kwargs):
+    """A WSINSIGHT_PRECISION value without a torch meaning (JAX's other
+    precision names among them) raises ValueError when the engine is built."""
     if env:
         monkeypatch.setenv(*env)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="WSINSIGHT_PRECISION='bfloat16'"):
         ClassifierEngine(load_local_model(*two_class), device="cpu", **kwargs)
 
 

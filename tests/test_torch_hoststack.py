@@ -371,8 +371,6 @@ def test_source_input_options_match_jax(slides, compression, kwargs, image_hw, s
 
 
 @pytest.mark.parametrize("opts,item", [
-    (dict(object_based=True, qupath_detection_dir="q"), 4),
-    (dict(object_based=True, qupath_geojson_detection_dir="q"), 4),
     (dict(object_based=True, object_detection="stardist"), 7),
 ])
 def test_plan_slide_refuses_unported_planners(slides, opts, item):
@@ -425,19 +423,6 @@ def test_plan_slide_halo_grid_matches_jax(slides, tmp_path, patch_px, halo, step
         assert "/polygons" not in port and "/polygons" not in jax
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(qupath_detection_dir="q"), 4),
-    (dict(qupath_geojson_annotation_dir="q"), 4),
-    (dict(object_based=True, references_dir="r"), 4),
-])
-def test_run_inference_refuses_unported_branches(tmp_path, kwargs, item):
-    from wsinsight_tpu_torch.engine.runner import run_inference
-    from wsinsight_tpu_torch.uri_path import URIPath
-
-    with pytest.raises(NotImplementedError, match=f"Queue 1, item {item}"):
-        run_inference(None, None, URIPath(str(tmp_path)), **kwargs)
-
-
 def test_profile_env_raises(monkeypatch):
     from wsinsight_tpu_torch.utils.profiling import maybe_trace, stage_timings
 
@@ -450,19 +435,15 @@ def test_profile_env_raises(monkeypatch):
             pass
 
 
-@pytest.mark.parametrize("args,item", [
-    (["--geojson"], 4), (["--omecsv"], 4), (["--hplot"], 9),
-    (["--cme-cellular"], 9), (["--qupath"], 4), (["--qupath-detection-dir", "."], 4),
-])
+@pytest.mark.parametrize("args,item", [(["--hplot"], 9), (["--cme-cellular"], 9)])
 def test_cli_refuses_unported_options(slides, tmp_path, args, item):
     from click.testing import CliRunner
 
     from wsinsight_tpu_torch.cli.cli import cli
 
     res = CliRunner().invoke(cli, ["run", "-i", str(slides["deflate"].parent), "-o",
-                                   str(tmp_path / "r"), *args]
-                             + ([] if "--qupath-detection-dir" in args
-                                else ["-m", "breast-tumor-resnet34.tcga-brca"]))
+                                   str(tmp_path / "r"), *args,
+                                   "-m", "breast-tumor-resnet34.tcga-brca"])
     assert res.exit_code == 2, res.output
     assert f"Queue 1, item {item}" in res.output
     assert not (tmp_path / "r" / "patches").exists()

@@ -148,7 +148,7 @@ def test_registry_copy_matches_jax():
     assert get_registered_model(name).config.to_dict() == jax_get(name).config.to_dict()
 
 
-@pytest.mark.parametrize("arch", ["vgg16", "hovernet_fast", "not_a_net"])
+@pytest.mark.parametrize("arch", ["hovernet_fast", "not_a_net"])
 def test_unported_architecture_raises(arch):
     with pytest.raises(UnknownArchitectureError, match="not yet ported"):
         create_model(arch, 2)
@@ -167,6 +167,9 @@ PORT_MODULES = (
     "native", "ops.native_build", "ops.stain",
     # the cell path's host half
     "ops.watershed", "ops.hv_postproc", "ops.hv_device",
+    # the zoo's other classifiers, the exporters and tosbu
+    "models.vgg", "models.inception_v4", "writers", "writers.common", "writers.wkt",
+    "writers.geojson", "writers.omecsv", "writers.qupath", "cli.convert_csv_to_sbubmi",
 )
 
 

@@ -7,7 +7,9 @@ live under ``ops/csrc`` and are compiled with ``nvcc`` at first use into
 (``native/*.cpp``) is compiled there with ``g++`` the same way.
 
 Ported so far: the patch-classification engine (``engine.runner.
-ClassifierEngine``) with its preprocess (``ops``) and the ResNet family; the
+ClassifierEngine``) with its preprocess (``ops``) and every zoo classifier
+(the ResNet family, VGG16, InceptionV4 with and without batch norm), with
+WSINSIGHT_PRECISION; the
 CellViT cell engine (``engine.cells.CellEngine``) with the SAM and ViT-256
 encoders and their fused window attention (``ops.flash_attn``), and the
 stitcher's device half (``engine.stitch``); weight loading
@@ -21,7 +23,10 @@ YUV 4:2:0 wire, the DCT half decode and stain normalization (``ops.stain``);
 and the cell path's host half, slide to nuclei: the halo grid, the
 stitcher's tiled watershed finalize (``ops.hv_postproc``, ``ops.watershed``
 on the native watershed, ``ops.hv_device``) and ``engine.cells.
-run_cell_inference`` behind ``run_inference``'s end2end branch.
+run_cell_inference`` behind ``run_inference``'s end2end branch; and
+infer's outputs and side branches: the GeoJSON, OME-CSV and QuPath
+exporters (``writers``), the QuPath planners and pseudo-models, the
+references overlay and ``tosbu`` (``cli.convert_csv_to_sbubmi``).
 """
 
 __version__ = "0.1.0"

@@ -5,9 +5,11 @@ cli/run.py:165-308); here they are factored into reusable decorators. Env vars
 honored: S3_STORAGE_OPTIONS (JSON fsspec kwargs), WSINSIGHT_REMOTE_CACHE_DIR.
 
 The port's commands take every option of the JAX package's, with the same
-names and defaults; an option whose branch is not ported yet raises
-``click.UsageError`` naming the ROADMAP.md Queue 1 item it waits for
-(:func:`refuse_unported`, :func:`refuse_unported_model`).
+names and defaults, the exporters and the QuPath pseudo-models
+(:func:`qupath_pseudo_model`) among them; an option whose branch is not
+ported yet (the analytics, --hplot and --cme-*) raises ``click.UsageError``
+naming the ROADMAP.md Queue 1 item it waits for (:func:`refuse_unported`,
+:func:`refuse_unported_model`).
 """
 
 from __future__ import annotations
@@ -226,14 +228,62 @@ def list_slides(wsi_dir: URIPath) -> list[URIPath]:
     return sorted([p for p in wsi_dir.iterdir() if p.is_file()])
 
 
+def qupath_pseudo_model(
+    wsi_paths, qupath_dir, *, geojson: bool, name_as_class: bool,
+    patch_size_pixels: int, spacing_um_px: float, architecture: str,
+) -> ModelHandle:
+    """Synthesize a pseudo-model whose classes are the union of QuPath classes
+    (reference: cli/patch.py:700-816)."""
+    import pandas as pd
+
+    class_names: list[str] = []
+    for wsi_path in wsi_paths:
+        if geojson:
+            f = URIPath(qupath_dir) / wsi_path.with_suffix(".geojson").name
+            if not f.exists():
+                continue
+            feats = json.loads(f.read_text()).get("features", [])
+            for feat in feats:
+                props = feat.get("properties") or {}
+                if name_as_class:
+                    val = props.get("name")
+                else:
+                    cls = props.get("classification")
+                    val = cls.get("name") if isinstance(cls, dict) else cls
+                if val:
+                    class_names.append(str(val).strip().replace(" ", "_").lower())
+        else:
+            f = URIPath(qupath_dir) / wsi_path.with_suffix(".txt").name
+            if not f.exists():
+                continue
+            with f.open("r", encoding="utf-8") as fp:
+                df = pd.read_csv(fp, delimiter="\t")
+            col = "Name" if name_as_class else "Classification"
+            # dropna: unclassified detections read as NaN, which would make
+            # sorted(set(...)) raise on str<float comparison
+            class_names.extend(
+                df[col]
+                .dropna()
+                .str.strip()
+                .str.replace(" ", "_", regex=False)
+                .str.lower()
+                .unique()
+                .tolist()
+            )
+    class_names = sorted(set(class_names))
+    cfg = ModelConfiguration(
+        architecture=architecture,
+        num_classes=len(class_names),
+        class_names=class_names,
+        patch_size_pixels=patch_size_pixels,
+        spacing_um_px=spacing_um_px,
+        transform=[],
+    )
+    return ModelHandle(name=architecture, config=cfg)
+
+
 # Options whose branch waits for a Queue 1 item of ROADMAP.md: (param name, item).
 _UNPORTED_OPTIONS = (
-    ("qupath_detection_dir", 4),
-    ("qupath_geojson_detection_dir", 4),
-    ("qupath_geojson_annotation_dir", 4),
-    ("geojson", 4),
-    ("omecsv", 4),
-    ("qupath", 4),
     ("hplot", 9),
     ("cme_cellular", 9),
     ("cme_annotation", 9),

@@ -7,11 +7,12 @@ variable bound only in QuPath branches.
 
 Counterpart of wsinsight_tpu/cli/infer.py, with the same options. The port
 runs patch classification into the model-output CSVs, with --fast-input and
-stain-normalized models, and end2end cell models (CellViT: one row per
-nucleus, the polygons into the patch files); the exporters, QuPath
-pseudo-models, the analytics and StarDist models raise ``click.UsageError``
-naming their ROADMAP.md item (``_options``). Reading the patch files needs
-h5py.
+stain-normalized models, end2end cell models (CellViT: one row per nucleus,
+the polygons into the patch files) and the QuPath pseudo-models, and writes
+the GeoJSON (--geojson) and OME-CSV (--omecsv) exports of those CSVs. The
+analytics (--hplot, --cme-*) and StarDist / HoVer-Net models raise
+``click.UsageError`` naming their ROADMAP.md item (``_options``). Reading
+the patch files needs h5py.
 """
 
 from __future__ import annotations
@@ -22,7 +23,9 @@ import click
 
 from ..engine import run_inference
 from ..parallel.mesh import force_cpu_requested
+from ..uri_path import URIPath
 from ..utils.metadata import print_system_info, write_run_metadata
+from ..writers import write_geojsons, write_omecsvs
 from . import _options as opt
 
 
@@ -161,9 +164,11 @@ def infer(
     )
     opt.validate_model_args(model_name, config, model_path, qupath_dirs)
     opt.refuse_unported(ctx.params)
-    model_obj = opt.resolve_model(model_name, config, model_path)
-    flags = opt.model_flags(model_obj)
-    opt.refuse_unported_model(flags, model_obj.config.architecture)
+    pseudo = model_name is None and config is None
+    if not pseudo:
+        model_obj = opt.resolve_model(model_name, config, model_path)
+        flags = opt.model_flags(model_obj)
+        opt.refuse_unported_model(flags, model_obj.config.architecture)
     opt.require_h5py()
 
     if num_workers is None:
@@ -185,14 +190,56 @@ def infer(
         if not slide_paths:
             raise FileNotFoundError(f"no files exist in the slide directory: {wsi_dir}")
 
-    # Validates the step options as the JAX command does; only the exporters
-    # (not ported) read the overlap.
-    opt.compute_overlap(
+    if pseudo:
+        use_annotation = qupath_geojson_annotation_dir is not None
+        use_geojson = qupath_geojson_detection_dir is not None or use_annotation
+        qdir = (
+            qupath_geojson_annotation_dir
+            if use_annotation
+            else (qupath_geojson_detection_dir if use_geojson else qupath_detection_dir)
+        )
+        if wsi_dir is None and slide_paths is None:
+            # Fall back to the patch stage's wsi_list.csv (the convention the
+            # reference reads but never writes, SURVEY.md §2.11).
+            wsi_list = results_dir / "wsi_list.csv"
+            if wsi_list.exists():
+                import pandas as pd
+
+                listing = pd.read_csv(wsi_list.materialize())
+                slide_paths = [URIPath(p) for p in listing["wsi_path"].tolist()]
+            else:
+                raise click.UsageError(
+                    "--wsi-dir (or a prior patch stage's wsi_list.csv) is"
+                    " required for QuPath pseudo-models."
+                )
+        model_obj = opt.qupath_pseudo_model(
+            slide_paths or opt.list_slides(wsi_dir),
+            qdir,
+            geojson=use_geojson,
+            name_as_class=qupath_name_as_class,
+            patch_size_pixels=(
+                qupath_annotation_patch_size if use_annotation else qupath_detection_patch_size
+            ),
+            spacing_um_px=qupath_spacing_um_px,
+            architecture="qupath.geojson" if use_geojson else "qupath.detection",
+        )
+        flags = dict(
+            object_based=not use_annotation,
+            object_detection=None,
+            mixed_precision=False,
+            stain_normalization=False,
+            halo_size_px=0,
+            stardist_normalization_pmin=1.0,
+            stardist_normalization_pmax=99.8,
+        )
+
+    overlap = opt.compute_overlap(
         model_obj.config,
         patch_overlap_ratio,
         patch_size_um,
         patch_size_px,
         object_based=flags["object_based"],
+        allow_multi=qupath_detection_dir is not None or qupath_geojson_detection_dir is not None,
     )
 
     if not (results_dir / "patches").exists():
@@ -220,6 +267,10 @@ def infer(
             slide_paths=slide_paths,
             results_dir=results_dir,
             references_dir=references_dir,
+            qupath_detection_dir=qupath_detection_dir,
+            qupath_geojson_detection_dir=qupath_geojson_detection_dir,
+            qupath_geojson_annotation_dir=qupath_geojson_annotation_dir,
+            qupath_name_as_class=qupath_name_as_class,
             model_info=model_obj,
             halo_size_px=flags["halo_size_px"],
             batch_size=batch_size,
@@ -236,6 +287,44 @@ def infer(
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = old
+
+    csv_exports = None
+    if geojson or omecsv:
+        csv_exports = sorted(
+            p
+            for p in (results_dir / "model-outputs-csv").iterdir(files_only=True)
+            if p.suffix == ".csv"
+        )
+
+    if geojson:
+        click.echo("\nWriting inference results to GeoJSON files\n")
+        write_geojsons(
+            csvs=csv_exports or [],
+            overlap=overlap,
+            results_dir=results_dir,
+            output_dir="model-outputs-geojson",
+            prefix="prob",
+            num_workers=export_workers,
+            object_type="detection" if flags["object_based"] else "tile",
+            set_classification=bool(flags["object_based"]),
+        )
+
+    if omecsv:
+        click.echo("\nWriting inference results to OMECSV files\n")
+        h5s = [
+            p
+            for p in (results_dir / "patches").iterdir(files_only=True)
+            if p.suffix == ".h5"
+        ]
+        write_omecsvs(
+            csvs=csv_exports or [],
+            h5s=h5s,
+            overlap=overlap,
+            results_dir=results_dir,
+            output_dir=URIPath("model-outputs-omecsv") if results_dir.scheme else "model-outputs-omecsv",
+            prefix="prob",
+            num_workers=export_workers,
+        )
 
     if failed_patching:
         click.secho(f"\nPatching failed for {len(failed_patching)} slides", fg="yellow")

@@ -5,8 +5,9 @@ with the registered-model branch defect fixed (flags default from the model
 config instead of being left unbound, SURVEY.md §2.11).
 
 Counterpart of wsinsight_tpu/cli/patch.py, with the same options. The port
-plans the tissue grid of classifier models and the halo grid of end2end cell
-models; the QuPath directories and StarDist models raise
+plans the tissue grid of classifier models, the halo grid of end2end cell
+models and the QuPath pseudo-models' boxes (TSV or GeoJSON detections, or
+the tissue grid for GeoJSON annotations); StarDist models raise
 ``click.UsageError`` (``_options``). Writing the patch files needs h5py.
 """
 
@@ -17,6 +18,7 @@ import click
 from ..patchlib import segment_and_patch_directory_of_slides
 from ..utils.metadata import print_system_info, write_run_metadata
 from ..utils.profiling import stage_timer
+from ..wsi import _validate_wsi_directory
 from . import _options as opt
 
 
@@ -98,9 +100,11 @@ def patch(
     if not slide_paths:
         raise FileNotFoundError(f"no files exist in the slide directory: {wsi_dir}")
 
-    model_obj = opt.resolve_model(model_name, config, model_path)
-    flags = opt.model_flags(model_obj)
-    opt.refuse_unported_model(flags, model_obj.config.architecture)
+    pseudo = model_name is None and config is None
+    if not pseudo:
+        model_obj = opt.resolve_model(model_name, config, model_path)
+        flags = opt.model_flags(model_obj)
+        opt.refuse_unported_model(flags, model_obj.config.architecture)
     opt.require_h5py()
 
     print_system_info()
@@ -109,6 +113,40 @@ def patch(
     for key, value in ctx.params.items():
         print(f"{key} = {value}")
     print("----------------------\n")
+
+    if pseudo and (qupath_detection_dir is not None or qupath_geojson_detection_dir is not None):
+        _validate_wsi_directory(wsi_dir)
+        use_geojson = qupath_geojson_detection_dir is not None
+        model_obj = opt.qupath_pseudo_model(
+            slide_paths,
+            qupath_geojson_detection_dir if use_geojson else qupath_detection_dir,
+            geojson=use_geojson,
+            name_as_class=qupath_name_as_class,
+            patch_size_pixels=qupath_detection_patch_size,
+            spacing_um_px=qupath_spacing_um_px,
+            architecture="qupath.geojson" if use_geojson else "qupath.detection",
+        )
+        flags = dict(
+            object_based=True, object_detection=None, mixed_precision=False,
+            stain_normalization=False, halo_size_px=0,
+            stardist_normalization_pmin=1.0, stardist_normalization_pmax=99.8,
+        )
+    elif pseudo:  # annotation dir
+        _validate_wsi_directory(wsi_dir)
+        model_obj = opt.qupath_pseudo_model(
+            slide_paths,
+            qupath_geojson_annotation_dir,
+            geojson=True,
+            name_as_class=qupath_name_as_class,
+            patch_size_pixels=qupath_annotation_patch_size,
+            spacing_um_px=qupath_spacing_um_px,
+            architecture="qupath.geojson",
+        )
+        flags = dict(
+            object_based=False, object_detection=None, mixed_precision=False,
+            stain_normalization=False, halo_size_px=0,
+            stardist_normalization_pmin=1.0, stardist_normalization_pmax=99.8,
+        )
 
     if references_dir is not None and not flags["object_based"]:
         raise click.ClickException("--references-dir only works with object based model.")
@@ -119,6 +157,7 @@ def patch(
         patch_size_um,
         patch_size_px,
         object_based=flags["object_based"],
+        allow_multi=qupath_detection_dir is not None or qupath_geojson_detection_dir is not None,
     )
 
     click.secho("\nFinding patch coordinates...\n", fg="green")

@@ -10,8 +10,9 @@ derives the forwarded subset from each subcommand's declared click params —
 adding a flag to `patch` or `infer` automatically routes it through `run`.
 
 Counterpart of wsinsight_tpu/cli/run.py. An option either stage does not
-have yet, and ``--qupath`` (the QuPath project, ROADMAP.md Queue 1 item 4),
-raise ``click.UsageError`` before the patch stage starts.
+have yet raises ``click.UsageError`` before the patch stage starts.
+``--qupath`` builds the QuPath project after both stages; it needs paquo and
+a QuPath install, and raises without them as the JAX command does.
 """
 
 from __future__ import annotations
@@ -65,7 +66,7 @@ def _invoke_stage(ctx: click.Context, cmd: click.Command, params: dict) -> None:
 @_adopt_params(patch, infer)
 def run(ctx: click.Context, *, qupath: bool, **params) -> None:
     """Run the patch stage then the infer stage in one shot."""
-    opt.refuse_unported({"qupath": qupath, **params})  # before either stage runs
+    opt.refuse_unported(params)  # before either stage runs
     wsi_dir = params.get("wsi_dir")
     if wsi_dir is not None and not params.get("slide_paths"):
         # One directory listing shared by both stages (and by --qupath below).
@@ -73,6 +74,14 @@ def run(ctx: click.Context, *, qupath: bool, **params) -> None:
 
     _invoke_stage(ctx, patch, params)
     _invoke_stage(ctx, infer, params)
+
+    if qupath:
+        from ..writers import make_qupath_project
+
+        click.echo("Creating QuPath project with results")
+        make_qupath_project(
+            wsi_dir, params["results_dir"], slide_paths=params.get("slide_paths")
+        )
 
     results_dir = params["results_dir"]
     model_name = params.get("model_name")

@@ -40,7 +40,7 @@ from ..uri_path import URIPath
 from ..utils.workers import governed_workers
 from ..zoo import ModelHandle, randomize_cell_model
 from .data import Batch, PatchBatchSource
-from .runner import _refuse_unported_options
+from .runner import precision_allows_tf32, tf32_flags
 from .stitch import TileRemapStitcher
 
 
@@ -48,9 +48,10 @@ class CellEngine:
     """(preprocess -> CellViT forward) step on one device.
 
     Parity mode (the default) computes in float32 with TF32 off for matmuls
-    and cuDNN convolutions (set for the process, as ``ClassifierEngine``
-    does). ``mixed_precision`` runs the model under bfloat16 autocast. On the
-    card every attention core runs the K2 kernel.
+    and cuDNN convolutions; WSINSIGHT_PRECISION="default" allows TF32, set
+    around each step as ``ClassifierEngine`` does. ``mixed_precision`` runs
+    the model under bfloat16 autocast. On the card every attention core runs
+    the K2 kernel.
 
     ``init_random`` gives the model ``randomize_cell_model``'s seeded weights
     (``seed``) instead of loading ``model_info``'s checkpoint, so a full-size
@@ -67,16 +68,13 @@ class CellEngine:
         device: str | torch.device | None = None,
         seed: int = 0,
     ):
-        _refuse_unported_options()
+        self.allow_tf32 = precision_allows_tf32()
         self.device = resolve_device(device)
         self.n_devices = 1  # one device in this slice; max_devices has nothing to cut
         cfg = model_info.config
         self.config = cfg
         self.mixed_precision = mixed_precision
         compute_dtype = torch.bfloat16 if mixed_precision else torch.float32
-        if not mixed_precision:
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
 
         model = create_model(cfg.architecture, cfg.num_classes, dtype=compute_dtype,
                              halo_size=cfg.halo_size_pixels, img_size=cfg.patch_size_pixels)
@@ -93,7 +91,7 @@ class CellEngine:
         return pad_to_multiple(n, self.n_devices)
 
     def _step(self, batch_u8: torch.Tensor) -> dict[str, torch.Tensor]:
-        with torch.inference_mode():
+        with torch.inference_mode(), tf32_flags(self.allow_tf32):
             if batch_u8.dim() == 3:
                 # YUV 4:2:0 wire (WSINSIGHT_WIRE=yuv420): RGB is rebuilt on
                 # the device; the rank says which format came.

@@ -21,21 +21,30 @@ step: (B, H, W, 3) RGB, or (B, H*3/2, W) planar YUV 4:2:0 (WSINSIGHT_WIRE),
 rebuilt on the device. With stain matrices (``w_est``/``w_def``, swapped per
 slide by ``set_stains``) it normalizes the stains before the preprocess.
 
-``run_inference`` has the JAX function's default branch (patch
-classification) with its stain normalization, host resize
+WSINSIGHT_PRECISION takes the JAX engines' names for float32 matmul
+precision and maps them onto TF32 (``precision_allows_tf32``): "highest",
+"float32" and "high" keep TF32 off (parity's setting, and the setting when
+the variable is unset); "default" turns it on. The flags are set around each
+step (``tf32_flags``), so engines of different settings share a process.
+
+``run_inference`` has every branch of the JAX function: patch
+classification (the default) with its stain normalization, host resize
 (WSINSIGHT_HOST_RESIZE) and wire (WSINSIGHT_WIRE) read per slide, its
 cross-slide source prefetch, resume and CSV schema
-(``minx,miny,width,height,prob_<class>...``), and its end2end cell branch
+(``minx,miny,width,height,prob_<class>...``); the end2end cell branch
 (``engine/cells.run_cell_inference``: one CSV row per nucleus, the polygons
-into the patch file's ``/polygons`` group). Its other branches raise
-``NotImplementedError`` naming the ROADMAP.md Queue 1 item they wait for:
-the QuPath pseudo-models and the references overlay (item 4). Multi-host
-fan-out (item 10) is not ported; each process runs every slide it is given.
+into the patch file's ``/polygons`` group); the QuPath pseudo-models (TSV
+detections, GeoJSON detections, GeoJSON annotations: one-hot rows, no
+engine and no device); and the references overlay (``annot_prob_*``) on
+object-based rows. Multi-host fan-out (ROADMAP.md Queue 1, item 10) is not
+ported; each process runs every slide it is given.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import json
 import logging
 import os
 import threading
@@ -48,7 +57,7 @@ import torch
 import tqdm
 
 from .. import errors
-from ..errors import not_ported
+from ..geometry import polygon_centroid
 from ..models import create_model
 from ..ops.fused_preprocess import make_fused_preprocess_fn
 from ..ops.preprocess import TransformSpec, make_preprocess_fn, yuv420_to_rgb
@@ -69,25 +78,51 @@ from .data import Batch, PatchBatchSource
 logger = logging.getLogger(__name__)
 
 
-def _refuse_unported_options() -> None:
-    """The option of the JAX engines not ported yet: WSINSIGHT_PRECISION (its
-    torch values are not defined yet)."""
-    if os.getenv("WSINSIGHT_PRECISION"):
-        raise NotImplementedError(not_ported("WSINSIGHT_PRECISION", 5))
+# WSINSIGHT_PRECISION's values (the JAX engines' matmul precisions) -> TF32.
+_PRECISION_TF32 = {"highest": False, "float32": False, "high": False, "default": True}
+
+
+def precision_allows_tf32() -> bool:
+    """Whether an engine's float32 matmuls and cuDNN convolutions may use
+    TF32, from WSINSIGHT_PRECISION: "highest", "float32" and "high" (and no
+    value) keep them in float32, "default" allows TF32. Read when an engine
+    is built; any other value raises ``ValueError``."""
+    value = os.getenv("WSINSIGHT_PRECISION", "")
+    if value and value not in _PRECISION_TF32:
+        raise ValueError(
+            f"WSINSIGHT_PRECISION={value!r}: expected one of {sorted(_PRECISION_TF32)}")
+    return _PRECISION_TF32.get(value, False)
+
+
+@contextlib.contextmanager
+def tf32_flags(allow: bool):
+    """Set TF32 for CUDA matmuls and cuDNN convolutions to ``allow`` for the
+    block, then restore the process's flags. Kernels are chosen when they are
+    enqueued, so an asynchronous step needs the flags only while it is
+    dispatched."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = matmul.allow_tf32, cudnn.allow_tf32
+    matmul.allow_tf32 = cudnn.allow_tf32 = allow
+    try:
+        yield
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = saved
 
 
 class ClassifierEngine:
     """(preprocess -> forward -> probs) step on one device.
 
     Parity mode (the default) computes in float32 with TF32 off for both
-    matmuls and cuDNN convolutions: this constructor sets
-    ``torch.backends.cuda.matmul.allow_tf32 = False`` and
-    ``torch.backends.cudnn.allow_tf32 = False`` for the process, since
-    cuDNN's default TF32 convolutions break the 1e-3 probability budget. Its
-    resize is the exact PIL fixed-point one (float64 accumulation).
+    matmuls and cuDNN convolutions, since cuDNN's default TF32 convolutions
+    break the 1e-3 probability budget. Its resize is the exact PIL
+    fixed-point one (float64 accumulation).
 
     ``mixed_precision`` runs the model in bfloat16 under autocast and the
     float32-weight resize, on the K1 kernel, which writes bfloat16.
+
+    WSINSIGHT_PRECISION="default" allows TF32 for the float32 matmuls and
+    convolutions (parity's within 0.01); the flags are set around each step
+    only (``tf32_flags``), so another engine in the process keeps its own.
 
     K1 (``ops/fused_preprocess``) is on by default wherever its float32
     resize already is the contract (mixed precision);
@@ -109,14 +144,11 @@ class ClassifierEngine:
         max_devices: int | None = None,
         device: str | torch.device | None = None,
     ):
-        _refuse_unported_options()
+        self.allow_tf32 = precision_allows_tf32()
         self.device = resolve_device(device)
         self.n_devices = 1  # one device in this slice; max_devices has nothing to cut
         cfg = model_info.config
         compute_dtype = torch.bfloat16 if mixed_precision else torch.float32
-        if not mixed_precision:
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
 
         model = create_model(cfg.architecture, cfg.num_classes, dtype=compute_dtype)
         model.load_state_dict(model_info.load_state_dict(model), strict=True)
@@ -155,7 +187,7 @@ class ClassifierEngine:
         return pad_to_multiple(n, self.n_devices)
 
     def _step(self, batch_u8: torch.Tensor) -> torch.Tensor:
-        with torch.inference_mode():
+        with torch.inference_mode(), tf32_flags(self.allow_tf32):
             # A rank-3 batch is the planar YUV 4:2:0 wire (B, H*3/2, W),
             # rebuilt here; the rank says which format came, so a source that
             # stayed on RGB (odd sizes) works too.
@@ -222,16 +254,153 @@ def classify_slide(
 
 
 def write_slide_csv(
-    path: URIPath, coords: np.ndarray, probs: np.ndarray, class_names
+    path: URIPath, coords: np.ndarray, probs: np.ndarray, class_names,
+    parent: pd.Series | None = None, references_dir: str | URIPath | None = None,
 ) -> None:
     """The model-output CSV of one slide: minx,miny,width,height,prob_<class>...
-    (reference: run_inference.py:568-607)."""
+    (reference: run_inference.py:568-607), then ``qupath_detection_parent``
+    (the QuPath TSV's ``Parent`` column) where ``parent`` is given, and the
+    references overlay's ``annot_prob_*`` columns where ``references_dir``
+    is."""
     slide_df = pd.DataFrame(
         dict(minx=coords[:, 0], miny=coords[:, 1], width=coords[:, 2], height=coords[:, 3])
     )
     slide_df.loc[:, [f"prob_{c}" for c in class_names]] = probs
+    if parent is not None:
+        slide_df.loc[:, "qupath_detection_parent"] = parent
+    if references_dir is not None:
+        _apply_references_overlay(slide_df, URIPath(references_dir), path.name)
     with path.open("w") as fh:
         slide_df.to_csv(fh, index=False)
+
+
+def _one_hot_probs(indexer: np.ndarray, n: int, k: int) -> np.ndarray:
+    probs = np.zeros((n, k), dtype=np.float32)
+    valid = indexer >= 0
+    probs[np.nonzero(valid)[0], indexer[valid]] = 1.0
+    return probs
+
+
+def _norm_names(series: pd.Series) -> pd.Series:
+    return series.str.strip().str.replace(" ", "_").str.lower()
+
+
+def _parse_geojson_rows(slide_geojson, qupath_name_as_class: bool):
+    """(centroid, class-name, objectType) per polygon feature of a QuPath
+    GeoJSON export; multi-part geometries use their first exterior ring."""
+    feats = json.loads(slide_geojson.read_text()).get("features", [])
+    rows, names, obj_types = [], [], []
+    for feat in feats:
+        geom = feat.get("geometry") or {}
+        props = feat.get("properties") or {}
+        coords_list = geom.get("coordinates") or []
+        if geom.get("type") == "Polygon" and coords_list:
+            ring = np.asarray(coords_list[0], dtype=np.float64)
+        elif geom.get("type") == "MultiPolygon" and coords_list:
+            ring = np.asarray(coords_list[0][0], dtype=np.float64)
+        else:
+            continue
+        cx, cy = polygon_centroid(ring)
+        rows.append((cx, cy))
+        cls = props.get("classification")
+        names.append(
+            props.get("name")
+            if qupath_name_as_class
+            else (cls.get("name") if isinstance(cls, dict) else cls)
+        )
+        obj_types.append(props.get("objectType", ""))
+    return rows, names, obj_types
+
+
+def _centroid_boxes(centers: np.ndarray, mpp: float, patch_size: int) -> np.ndarray:
+    """(N, 4) boxes of ``patch_size`` px centred on µm centroids."""
+    half = round(patch_size / 2)
+    x = np.rint(centers[:, 0] / mpp - half).astype(np.int32)
+    y = np.rint(centers[:, 1] / mpp - half).astype(np.int32)
+    return np.column_stack([x, y, np.full_like(x, patch_size), np.full_like(y, patch_size)])
+
+
+def _qupath_tsv_rows(slide_det: URIPath, mpp: float, cfg, name_as_class: bool):
+    """QuPath TSV pseudo-model (reference: run_inference.py:318-357): one
+    one-hot row per detection, and the TSV's ``Parent`` column."""
+    qpdet_df = pd.read_csv(slide_det.materialize(), delimiter="\t")
+    centers = qpdet_df[["Centroid X µm", "Centroid Y µm"]].to_numpy(np.float64)
+    coords_arr = _centroid_boxes(centers, mpp, cfg.patch_size_pixels)
+    det_mask = (qpdet_df["Object type"] == "Detection") | (qpdet_df["Object type"] == "Cell")
+    col = "Name" if name_as_class else "Classification"
+    # Index over ALL rows, masking non-detections to -1, so probs stay
+    # row-aligned with coords. The reference indexes the det_mask SUBSET but
+    # scatters its positions into the full-length probs
+    # (run_inference.py:342-353), shifting every class one row up past a
+    # non-Detection row; that corruption is not reproduced.
+    indexer = pd.Index(cfg.class_names).get_indexer(_norm_names(qpdet_df[col]))
+    indexer = np.where(det_mask.to_numpy(), indexer, -1)
+    probs_arr = _one_hot_probs(indexer, len(qpdet_df), len(cfg.class_names))
+    return coords_arr, probs_arr, qpdet_df["Parent"]
+
+
+def _qupath_geojson_rows(slide_geojson: URIPath, mpp: float, cfg, name_as_class: bool,
+                         object_types: tuple[str, ...]):
+    """QuPath GeoJSON pseudo-model (reference: run_inference.py:359-416):
+    one one-hot row per polygon feature, kept where its ``objectType`` is one
+    of ``object_types``. None when the file has no polygon."""
+    rows, names, obj_types = _parse_geojson_rows(slide_geojson, name_as_class)
+    if not rows:
+        return None
+    coords_arr = _centroid_boxes(np.asarray(rows), mpp, cfg.patch_size_pixels)
+    name_series = pd.Series([n if n is not None else "" for n in names])
+    indexer = pd.Index(cfg.class_names).get_indexer(_norm_names(name_series))
+    indexer = np.where(np.isin(np.array(obj_types), object_types), indexer, -1)
+    return coords_arr, _one_hot_probs(indexer, len(rows), len(cfg.class_names))
+
+
+def _apply_references_overlay(
+    slide_df: pd.DataFrame, references_dir: URIPath, slide_csv_name: str
+) -> None:
+    """Point-in-box overlay of a prior run's tile CSV onto per-cell rows.
+
+    Chunked, vectorized containment + largest-area tie-break (reference:
+    run_inference.py:613-729). Unlike the reference, whose value-fill lines
+    were commented out, leaving annot_prob_* always NaN (SURVEY.md §2.11),
+    the matched tile probabilities are written.
+    """
+    annot_csv = references_dir / "model-outputs-csv" / slide_csv_name
+    annot_df = pd.read_csv(
+        annot_csv.materialize() if isinstance(annot_csv, URIPath) else annot_csv,
+        engine="c",
+        low_memory=False,
+    )
+    cx = (slide_df["minx"] + slide_df["width"] * 0.5).to_numpy()
+    cy = (slide_df["miny"] + slide_df["height"] * 0.5).to_numpy()
+
+    ax0 = annot_df["minx"].to_numpy()
+    ay0 = annot_df["miny"].to_numpy()
+    ax1 = (annot_df["minx"] + annot_df["width"]).to_numpy()
+    ay1 = (annot_df["miny"] + annot_df["height"]).to_numpy()
+    area = (annot_df["width"] * annot_df["height"]).to_numpy()
+    prob_cols = [c for c in annot_df.columns if c.startswith("prob_")]
+    probs_mat = annot_df[prob_cols].to_numpy(dtype=np.float32)
+
+    n_points = len(slide_df)
+    for c in prob_cols:
+        slide_df["annot_prob_" + c] = np.nan
+
+    chunk = max(1000, min(200_000 // max(1, len(annot_df) // 1000 + 1), n_points or 1))
+    for s in range(0, n_points, chunk):
+        e = min(n_points, s + chunk)
+        mask = (
+            (cx[s:e, None] >= ax0[None, :])
+            & (cx[s:e, None] <= ax1[None, :])
+            & (cy[s:e, None] >= ay0[None, :])
+            & (cy[s:e, None] <= ay1[None, :])
+        )
+        has_hit = mask.any(axis=1)
+        cand = np.where(mask, area[None, :], -np.inf)
+        best = cand.argmax(axis=1)
+        for j, c in enumerate(prob_cols):
+            vals = np.full(e - s, np.nan, dtype=np.float32)
+            vals[has_hit] = probs_mat[best[has_hit], j]
+            slide_df.loc[slide_df.index[s:e], "annot_prob_" + c] = vals
 
 
 def run_inference(
@@ -260,12 +429,10 @@ def run_inference(
     Returns (failed_patching, failed_inference) slide-stem lists
     (reference: run_inference.py:45-105). ``device`` follows
     ``parallel.mesh.resolve_device``: the card unless the caller asks for
-    the CPU."""
-    if qupath_detection_dir or qupath_geojson_detection_dir or qupath_geojson_annotation_dir:
-        raise NotImplementedError(not_ported("the QuPath pseudo-models", 4))
-    if references_dir is not None and object_based:
-        raise NotImplementedError(not_ported("the references overlay", 4))
-
+    the CPU. With a QuPath directory the rows come from QuPath's detections
+    or annotations (``model_info`` is then a pseudo-model, as
+    ``cli._options.qupath_pseudo_model`` builds): no engine is built and no
+    device is touched."""
     # `speedup` is the CLI's name for the bf16 fast path; API callers get the
     # same semantics the CLI pre-folds (JAX package: cli/infer.py:255).
     mixed_precision = mixed_precision or speedup
@@ -299,6 +466,21 @@ def run_inference(
     engine: ClassifierEngine | None = None
     cells = object_based and object_detection == "end2end"
     cell_engine = None
+    # QuPath pseudo-model modes, in the JAX function's order: TSV and GeoJSON
+    # detections (object-based, alone), then GeoJSON annotations.
+    pseudo = None
+    if object_based and qupath_detection_dir is not None and not (
+        qupath_geojson_detection_dir or qupath_geojson_annotation_dir
+    ):
+        pseudo = "tsv"
+    elif object_based and qupath_geojson_detection_dir is not None and not (
+        qupath_detection_dir or qupath_geojson_annotation_dir
+    ):
+        pseudo = "geojson"
+    elif qupath_geojson_annotation_dir is not None:
+        pseudo = "annotation"
+    # The references overlay fills annot_prob_* on object-based rows.
+    overlay_dir = references_dir if object_based else None
 
     # Cross-slide overlap: while slide i drains, a background thread opens
     # slide i+1's patch source and STARTS its decode producer, so the first
@@ -346,6 +528,39 @@ def run_inference(
                 pbar.update(1)
                 continue
 
+            if pseudo is not None:
+                cfg = model_info.config
+                mpp = _slide_mpp(patch_path)
+                parent = None
+                if pseudo == "tsv":
+                    slide_det = URIPath(qupath_detection_dir) / wsi_path.with_suffix(".txt").name
+                    rows = None
+                    if slide_det.exists():
+                        try:
+                            *rows, parent = _qupath_tsv_rows(slide_det, mpp, cfg,
+                                                             qupath_name_as_class)
+                        except Exception as err:
+                            # one malformed TSV (e.g. no Name column under
+                            # --qupath-name-as-class) must not stop the cohort
+                            logger.error(f"QuPath TSV parse failed for {wsi_path}",
+                                         exc_info=err)
+                else:
+                    gj_dir = (qupath_geojson_detection_dir if pseudo == "geojson"
+                              else qupath_geojson_annotation_dir)
+                    slide_gj = URIPath(gj_dir) / wsi_path.with_suffix(".geojson").name
+                    # QuPath exports annotations with objectType "annotation";
+                    # a missing objectType is accepted for hand-rolled files.
+                    kinds = ("detection", "cell") if pseudo == "geojson" else ("annotation", "")
+                    rows = (_qupath_geojson_rows(slide_gj, mpp, cfg, qupath_name_as_class, kinds)
+                            if slide_gj.exists() else None)
+                if rows is None:
+                    failed_inference.append(wsi_path.stem)
+                elif len(rows[0]):
+                    write_slide_csv(slide_csv, *rows, cfg.class_names, parent=parent,
+                                    references_dir=overlay_dir)
+                pbar.update(1)
+                continue
+
             if cells:
                 # CellViT single-cell path (reference: :431-535): one engine
                 # for every slide; a slide that fails is logged and listed.
@@ -364,7 +579,8 @@ def run_inference(
                                        slide_csv, model_info.config.class_names,
                                        halo_size_px=halo_size_px, batch_size=batch_size,
                                        num_workers=num_workers,
-                                       stitch_workers=stitch_workers):
+                                       stitch_workers=stitch_workers,
+                                       references_dir=overlay_dir):
                     failed_inference.append(wsi_path.stem)
                 pbar.update(1)
                 continue
@@ -466,10 +682,11 @@ def run_inference(
 
 
 def _run_cell_slide(engine, wsi_path, patch_path, use_hdf5_images, slide_csv, class_names,
-                    **run_opts) -> bool:
+                    references_dir=None, **run_opts) -> bool:
     """One slide through ``run_cell_inference``: its instances' polygons into
-    the patch file's ``/polygons`` group, one CSV row per instance. False
-    (logged) when the slide's inference fails."""
+    the patch file's ``/polygons`` group, one CSV row per instance (with the
+    references overlay from ``references_dir``). False (logged) when the
+    slide's inference fails."""
     import h5py
 
     from .cells import run_cell_inference
@@ -493,8 +710,18 @@ def _run_cell_slide(engine, wsi_path, patch_path, use_hdf5_images, slide_csv, cl
             with h5py.File(fh, "a") as f:
                 write_polygons_group(f, polys, f["/coords"].compression)
     if len(coords_arr):
-        write_slide_csv(slide_csv, coords_arr, probs_arr, class_names)
+        write_slide_csv(slide_csv, coords_arr, probs_arr, class_names,
+                        references_dir=references_dir)
     return True
+
+
+def _slide_mpp(patch_path) -> float:
+    """The slide's microns per pixel, from its patch file."""
+    import h5py
+
+    local = patch_path.materialize() if isinstance(patch_path, URIPath) else patch_path
+    with h5py.File(local, "r") as f:
+        return float(f["/slide"].attrs["slide_mpp"])
 
 
 def _slide_attrs(patch_path) -> tuple[URIPath, bool]:

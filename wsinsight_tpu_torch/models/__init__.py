@@ -1,9 +1,11 @@
 """Model zoo of the port: architecture registry and constructors.
 
 Counterpart of wsinsight_tpu/models/__init__.py, with the same aliases.
-Ported: the ResNet family and CellViT (SAM-B/L/H and ViT-256); CellViT-Virchow
-is registered and raises ``NotImplementedError`` until its encoder is ported;
-every other architecture raises ``UnknownArchitectureError``.
+Ported: every zoo classifier (the ResNet family, VGG16 / vgg16mod and
+InceptionV4 with and without batch norm) and CellViT (SAM-B/L/H and
+ViT-256). CellViT-Virchow is registered and raises ``NotImplementedError``
+until its encoder is ported (ROADMAP.md Queue 1, item 8); HoVer-Net (item 7)
+and H-Optimus-0 (item 8) raise ``UnknownArchitectureError``.
 """
 
 from __future__ import annotations
@@ -14,7 +16,9 @@ import torch
 
 from ..errors import UnknownArchitectureError
 from .cellvit import cellvit_256, cellvit_sam_b, cellvit_sam_h, cellvit_sam_l, cellvit_virchow
+from .inception_v4 import inception_v4, inception_v4nobn
 from .resnet import preactresnet34, resnet34, resnet50
+from .vgg import vgg16
 
 _REGISTRY: dict[str, Callable] = {}
 
@@ -27,6 +31,12 @@ def _register(fn: Callable, *names: str) -> None:
 _register(resnet34, "resnet34")
 _register(resnet50, "resnet50")
 _register(preactresnet34, "preactresnet34", "preact_resnet34")
+_register(inception_v4, "inception_v4", "inceptionv4")
+_register(
+    inception_v4nobn, "inception_v4nobn", "inceptionv4nobn", "inception_v4_no_batchnorm",
+    "inceptionv4_no_batchnorm",
+)
+_register(vgg16, "vgg16", "vgg16mod", "vgg16_mod")
 _register(cellvit_sam_h, "cellvit_sam_h", "cellvit-sam-h")
 _register(cellvit_sam_l, "cellvit_sam_l", "cellvit-sam-l")
 _register(cellvit_sam_b, "cellvit_sam_b", "cellvit-sam-b")

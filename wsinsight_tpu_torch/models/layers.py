@@ -13,8 +13,10 @@ the stock layers is only what the JAX package pins down:
   whatever the activations' dtype (``EvalBN`` at layers.py:72-91).
 * ``global_avg_pool`` averages in float32.
 
-Linear layers and max pooling are torch's own (``nn.Linear``;
-``F.max_pool2d`` pads with -inf, as ``max_pool_torch`` does). So are the ViT
+Linear layers and pooling are torch's own (``nn.Linear``; max pooling pads
+with -inf, as ``max_pool_torch`` does; ``avg_pool_torch`` with
+``count_include_pad=False`` is ``nn.AvgPool2d`` with the same flag, and
+``adaptive_avg_pool_torch`` is ``F.adaptive_avg_pool2d``). So are the ViT
 and CellViT layers that flax takes from ``flax.linen``, under flax's names:
 ``LayerNorm`` (epsilon 1e-6, the only one the ViTs use) and
 ``ConvTranspose`` (the 2x2 stride-2 upsampler of the CellViT decoder). Tensors

@@ -14,8 +14,8 @@ slide with the very code the CLI runs. The five modes:
 4. StarDist pre-detection (reference: :299-355)
 5. default tissue grid with per-tile polygons + tile_dim (reference: :357-402)
 
-The port has modes 3 and 5; modes 1, 2 and 4 raise ``NotImplementedError``
-naming the ROADMAP.md item they wait for.
+The port has modes 1, 2, 3 and 5; mode 4 raises ``NotImplementedError``
+naming the ROADMAP.md item it waits for (StarDist, Queue 1 item 7).
 
 Also fixes a latent reference defect: the patch stage writes
 ``results_dir/wsi_list.csv``, which downstream QuPath pseudo-model branches
@@ -25,6 +25,7 @@ read but nothing in the reference produces (SURVEY.md §2.11).
 from __future__ import annotations
 
 import contextlib
+import json
 import logging
 from dataclasses import dataclass, field
 from typing import List, Optional
@@ -35,6 +36,7 @@ import pandas as pd
 from PIL import Image
 
 from ..errors import not_ported
+from ..geometry import polygon_centroid
 from ..uri_path import URIPath
 from ..wsi import _validate_wsi_directory, get_avg_mpp, get_wsi_cls
 from .io import draw_contours_on_thumbnail, extract_patches_from_slide, save_hdf5
@@ -92,21 +94,81 @@ def _closed_square(x: float, y: float, side: float) -> np.ndarray:
     )
 
 
+def _load_geojson_features(path: URIPath) -> list[dict]:
+    data = json.loads(URIPath(path).read_text())
+    kind = data.get("type")
+    if kind == "FeatureCollection":
+        return data.get("features", [])
+    return [data] if kind == "Feature" else []
+
+
+def _exterior_rings(geom: dict) -> list[np.ndarray]:
+    """Exterior rings of a GeoJSON Polygon/MultiPolygon as float32 arrays."""
+    kind = geom.get("type")
+    shells = []
+    if kind == "Polygon":
+        shells = [geom.get("coordinates") or []]
+    elif kind == "MultiPolygon":
+        shells = geom.get("coordinates") or []
+    return [np.asarray(s[0], dtype=np.float32) for s in shells if s]
+
+
 # ---------------------------------------------------------------------------
 # Planning modes
 # ---------------------------------------------------------------------------
 
 
 def _plan_qupath_tsv(ctx: _SlideContext) -> Optional[PatchPlan]:
-    """Mode 1: QuPath TSV detections -> centroid boxes (JAX package:
-    patchlib/pipeline.py:116-136)."""
-    raise NotImplementedError(not_ported("the QuPath TSV patch planner", 4))
+    """Mode 1: QuPath TSV detections -> fixed-size boxes around centroids
+    (reference: pipeline.py:170-205). Patch size stays in MODEL pixels."""
+    patch_size = ctx.opts["patch_size_px"]
+    half = round(patch_size / 2)
+    det_file = URIPath(ctx.opts["qupath_detection_dir"]) / f"{ctx.slide_path.stem}.txt"
+    if not det_file.exists():
+        logger.info(f"Skipping because detection file not found: {det_file}")
+        return PatchPlan(np.zeros((0, 2), np.int32), patch_size=patch_size)
+
+    table = pd.read_csv(det_file.materialize(), delimiter="\t")
+    xs = np.rint(table["Centroid X µm"] / ctx.mpp - half).astype(np.int32)
+    ys = np.rint(table["Centroid Y µm"] / ctx.mpp - half).astype(np.int32)
+    # Ring = the patch extent [x, x+2h) around the centroid. The reference
+    # re-subtracts half from the already-top-left x/y (pipeline.py:195-203),
+    # shifting every polygon half a patch off its own box — a
+    # self-inconsistent-output defect we deliberately do not reproduce
+    # (SURVEY.md §2.11 spirit).
+    rings = [_closed_square(x, y, 2 * half) for x, y in zip(xs, ys)]
+    return PatchPlan(np.column_stack([xs, ys]), polygons=rings, patch_size=patch_size)
 
 
 def _plan_qupath_geojson(ctx: _SlideContext) -> Optional[PatchPlan]:
-    """Mode 2: QuPath GeoJSON detections -> centroids + rings (JAX package:
-    patchlib/pipeline.py:138-167)."""
-    raise NotImplementedError(not_ported("the QuPath GeoJSON patch planner", 4))
+    """Mode 2: QuPath GeoJSON detections -> centroids + native-unit rings
+    (reference: pipeline.py:207-259). Reference parity: centroids convert to
+    pixels but rings stay in the GeoJSON's units, and multi-part geometries
+    are exploded — /polygons rows do NOT pair 1:1 with /coords rows here;
+    the only consumer of this mode (references-dir overlay) reads coords."""
+    patch_size = ctx.opts["patch_size_px"]
+    half = round(patch_size / 2)
+    gj_file = URIPath(ctx.opts["qupath_geojson_detection_dir"]) / (
+        ctx.slide_path.stem + ".geojson"
+    )
+    if not gj_file.exists():
+        logger.info(f"Skipping because geojson file not found: {gj_file}")
+        return PatchPlan(np.zeros((0, 2), np.int32), patch_size=patch_size)
+
+    centers: list[tuple[float, float]] = []
+    rings: list[np.ndarray] = []
+    for feature in _load_geojson_features(gj_file):
+        shells = _exterior_rings(feature.get("geometry") or {})
+        if shells:
+            # centroid of the first exterior shell, like geopandas' centroid
+            # of the (exploded) geometry upstream
+            centers.append(polygon_centroid(shells[0].astype(np.float64)))
+            rings.extend(shells)
+    if not rings:
+        return None
+    um = np.asarray(centers, dtype=np.float64)
+    coords = np.rint(um / ctx.mpp - half).astype(np.int32)
+    return PatchPlan(coords, polygons=rings, patch_size=patch_size)
 
 
 def _plan_halo_grid(ctx: _SlideContext) -> Optional[PatchPlan]:

@@ -310,9 +310,10 @@ def make_random_local_model(
     conv kernels normal with variance 2/fan-in, linear 1/fan-in (the scales
     of the flax initializers the JAX package uses); batch norms and biases
     keep their identity init. With identity batch norms the features grow
-    with depth, so the head is then scaled to give unit-scale logits on a
-    seeded noise batch: probabilities that are not saturated keep the
-    model's numerics visible in comparisons.
+    with depth, so the head (the last linear layer: ``fc``, VGG16's
+    ``classifier.6``, InceptionV4's ``last_linear``) is then scaled to give
+    unit-scale logits on a seeded noise batch: probabilities that are not
+    saturated keep the model's numerics visible in comparisons.
 
     Cell architectures take the JAX package's cell config (256 px unless
     given, halo 46, ToTensor + Normalize 0.5/0.5, ``end2end`` detection) and
@@ -364,7 +365,8 @@ def make_random_local_model(
                 elif name.endswith("bias"):
                     p.zero_()
             probe = torch.randn((2, 3, resize_size, resize_size), generator=gen)
-            model.fc.weight.div_(model(probe).std().clamp(min=1e-6))
+            head = [m for m in model.modules() if isinstance(m, torch.nn.Linear)][-1]
+            head.weight.div_(model(probe).std().clamp(min=1e-6))
     cfg = ModelConfiguration(
         architecture=architecture,
         num_classes=num_classes,
