@@ -6,10 +6,11 @@
 Drives the port's two paths at full width and depth with seeded random
 weights: patch classification with the zoo model breast-tumor-resnet34.
 tcga-brca (350 px patches, resize 224, ResNet34, 2 classes) and the zoo's
-other classifiers (VGG16, InceptionV4 with and without batch norm), and the CellViT
+other classifiers (VGG16, InceptionV4 with and without batch norm), and the
 cell path with CellViT-SAM-H-x40 (ViT-H, 32 blocks, windowed and global
-rel-pos attention; also over a whole slide to its nuclei) and
-CellViT-256-x40 (ViT-S/16 with a cls token). Holds
+rel-pos attention; also over a whole slide to its nuclei), CellViT-256-x40
+(ViT-S/16 with a cls token) and hovernet_fast_pannuke (HoVer-Net fast);
+then StarDist's object-based patch stage and a classifier on its nuclei. Holds
 every hand-written kernel against its plain torch version. Phases; any
 failure exits non-zero and prints no result line:
 
@@ -127,6 +128,60 @@ failure exits non-zero and prints no result line:
       GeoJSON one feature per CSV row with its prob_* as measurements and its
       box the CSV's shrunk by the CLI's overlap, the OME-CSV one row per CSV
       row under the JAX package's header. It runs after (k), before (l).
+  (o) HoVer-Net (hovernet_fast_pannuke as the registry holds it: 256 px,
+      halo 46, ToTensor alone; CellEngine with init_random, seed 0, 37.6 M
+      parameters, whose NP head is then set from a probe, as (p) sets
+      StarDist's: the head's input features projected on their mean inside
+      (l)'s drawn nuclei less their mean outside, cut at the drawn nuclei's
+      share; the seeded head's own bf16 flip share is printed beside it),
+      parity and bf16: 8 batches of B=32 patches cut from the 2,716 px
+      window of (l)'s slide with the most drawn nuclei (a 16 x 16 halo grid)
+      through device_postprocess -> scatter as in (g): patches/s, device ms
+      of the forward and of the post-process, peak memory, the forward's top
+      four kernels and its layout conversions (cuDNN's NHWC <-> NCHW
+      kernels; profiler), and d1-d3's first stride-2 conv alone (the TF-SAME
+      F.pad and the conv, apart and together; CUDA events); checks: K1 and
+      K2 launches 0, parity on the card vs
+      the CPU (2 patches, maps <= 1e-3), parity's NP > 0.5 on 5-95% of the
+      canvas, bf16 vs parity NP > 0.5 decisions agreeing on >= 99% of it,
+      every map finite; then (l)'s slide through the halo grid ->
+      stitch_slide -> finalize -> the CSV in bf16, with the HV head zeroed
+      (as the CPU tests' end-to-end runs: each NP component one instance):
+      patches/s without and with the finalize, device-busy share, the main
+      thread's split, the finalize's seconds; checks as (l)'s (launches 0,
+      lists aligned, polygons in their boxes, one CSV row per instance) and
+      at least one instance;
+  (p) StarDist on (l)'s slide (the written file): seeded StarDistUNet weights
+      whose heads see the drawn nuclei (the prob head from a probe of the
+      first block: the features' mean inside the drawn nuclei's inner halves
+      less their mean outside any nucleus, its threshold the one of four
+      whose NMS keeps the count nearest the block's drawn nuclei; rays of 12
+      px with a
+      seeded spread of 1.5 px; what was chosen is printed), written as
+      stardist_2D_versatile_he.msgpack into a temporary WSINSIGHT_MODEL_DIR;
+      plan_slide(object_based=True, object_detection="stardist") for the
+      lymphocyte classifier's patch (100 px at 0.5 um/px): seconds of its
+      stages as the library times them (utils.profiling.hot_stage, on for
+      the whole script: the level-0 read, the percentile normalize, the
+      tile's copy in, the forward, the maps' copy out, the candidates, the
+      NMS), the forward per block by CUDA events (global module hooks);
+      block count, candidates, nuclei kept (the plan's logged counts),
+      coords, peak memory;
+      the NMS on the drawn nuclei's own prob and dist maps (kept against
+      drawn, share of drawn centres with a kept centre within 2 px); checks:
+      4 blocks of 4224^2, 5,000-20,000 nuclei as closed 32-ray star polygons,
+      K1 and K2 launches 0, the drawn maps' NMS keeping 80-105% of the drawn
+      nuclei and finding >= 80% within 2 px, every stage timed (> 0 s), the
+      forward on the card vs the CPU on a 512^2 tile (prob <= 1e-5, dist <=
+      1e-3 px, and prob's pre-sigmoid logit within 1e-4 of the size of its
+      terms, a bar that does not rest on the head's weights); then the plan's
+      nuclei through pancancer-lymphocytes-inceptionv4.tcga made
+      object-based with StarDist detection (seeded, bf16): classify_slide ->
+      the CSV -> write_geojsons, checking one CSV row and one GeoJSON
+      detection per planned nucleus, each nucleus's star polygon in the plan,
+      and K1 and K2 launches 0 (Scale takes the torch preprocess). (o) and
+      (p) run after (l); the record's kernels name them as paths that launch
+      neither kernel.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}, printed exactly when every phase passed, and
@@ -137,6 +192,7 @@ the port's package is not beside it). Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -908,12 +964,13 @@ def ridge_check(check, st, workers: int, cv2_path, what: str) -> dict:
     return {"finalize_s": ridge_s, "energy_batches": len(calls), "same": same, "max_abs_dp": dp}
 
 
-def cell_slide_phase(check, kernels, card, rng, engines) -> dict:
+def cell_slide_phase(check, kernels, card, rng, engines, cell_slide) -> dict:
     """(l): a synthetic slide with nuclei through the cell path: plan_slide
     (halo grid) -> PatchBatchSource -> stitch_slide -> finalize -> the CSV,
     with CellViT-SAM-H-x40 in parity and bf16; the native watershed against
     the Python one and the ridge on the card against the cv2 path, on the
-    parity canvases and on the drawn nuclei's own maps."""
+    parity canvases and on the drawn nuclei's own maps. ``cell_slide`` is
+    write_nuclei_slide's (path, tissue share, nuclei, seconds)."""
     import pandas as pd
 
     from wsinsight_tpu_torch.cli.infer import default_infer_workers, default_stitch_workers
@@ -924,9 +981,8 @@ def cell_slide_phase(check, kernels, card, rng, engines) -> dict:
     from wsinsight_tpu_torch.utils.workers import governed_workers
 
     tmp = tempfile.TemporaryDirectory()
-    path = f"{tmp.name}/cells.tif"
+    path, tissue, nuclei, secs = cell_slide
     side = CELL_SLIDE_PX
-    tissue, nuclei, secs = write_nuclei_slide(path, side, rng)
     print(f"(l) slide {side} x {side} px at {SLIDE_MPP} um/px ({side * SLIDE_MPP / 1000:.2f} mm"
           f" square), JPEG tiles of 256 at quality 85, 3 levels, tissue {tissue:.1%} of a coarse"
           f" grid, {len(nuclei[0])} nuclei drawn: {os.path.getsize(path) / 2**20:.1f} MiB written in"
@@ -1093,28 +1149,6 @@ def run_window(engine, data) -> tuple[np.ndarray, float]:
     return np.concatenate(outs), time.perf_counter() - t0
 
 
-def kernel_split(engine, x, top: int = 4) -> list:
-    """The ``top`` kernels of one step by device time, from a profiler
-    trace: [(name, share of the step's kernel time)]. A report, not a check."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            engine.dispatch(x)
-            torch.cuda.synchronize()
-        times = {}
-        for evt in prof.key_averages():
-            if evt.device_type == torch.autograd.DeviceType.CUDA:
-                t = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0.0)
-                times[evt.key] = times.get(evt.key, 0.0) + t
-        total = sum(times.values()) or float("nan")
-        return [(k[:70], t / total) for k, t in sorted(times.items(), key=lambda kv: -kv[1])[:top]]
-    except Exception as err:  # the trace is a report, not a check
-        print(f"    profiler trace failed: {err!r}")
-        return []
-
-
 def conv_probe() -> list:
     """InceptionB's asymmetric convolutions alone, B=256 at 17 x 17,
     channels_last, beside a 3x3 of the same channels: device us per call
@@ -1203,10 +1237,10 @@ def zoo_phase(check, kernels, card, resnet) -> dict:
             del x
         x = engines[False].put(data[1])
         for mixed, engine in engines.items():
-            split = kernel_split(engine, x)
+            split = top_kernels(lambda: engine.dispatch(x))
             model_stats["bf16" if mixed else "parity"]["top_kernels"] = split
             print(f"    {'bf16' if mixed else 'parity'} step's top kernels (profiler, share of"
-                  " kernel time): " + "; ".join(f"{k} {v:.1%}" for k, v in split))
+                  " kernel time): " + "; ".join(f"{k} {v:.1%}" for k, v, _ in split))
         del x
         if arch == "inception_v4":
             probe = model_stats["conv_probe"] = conv_probe()
@@ -1355,10 +1389,716 @@ def exports_phase(check, kernels, card, path, plan, workers, out_dir) -> dict:
     return {"stats": st, "k1_launches": st["launches"]["fused_preprocess"]}
 
 
+# (o): HoVer-Net fast as the registry holds it (256 px, halo 46, ToTensor
+# alone: the torch preprocess, no K1; all convolutions: no K2), with seeded
+# weights (randomize_cell_model, seed SEED).
+HOVERNET_MODEL = "hovernet_fast_pannuke"
+# (p): StarDist over (l)'s slide, then an object-based classifier on its
+# nuclei: the lymphocyte model's config (100 px at 0.5 um/px, Scale: the
+# torch preprocess, no K1) made object-based with StarDist pre-detection.
+STARDIST_CLASSIFIER = "pancancer-lymphocytes-inceptionv4.tcga"
+STARDIST_BLOCK = 4096 + 128  # the first block's tile: block_size + context
+STARDIST_RAY = 12.0  # px: the drawn nuclei's mean radius (NUCLEUS_RADII)
+STARDIST_TILE = 512  # the card vs CPU forward check's tile side
+# Paths that launch neither kernel, checked in (o) and (p): the record says so.
+NO_KERNEL_PATHS = ("(o) HoVer-Net: ToTensor takes the torch preprocess, no attention",
+                   "(p) StarDist: convolutions only; the lymphocyte classifier's Scale takes"
+                   " the torch preprocess")
+
+
+def top_kernels(fn, top: int | None = 4) -> list:
+    """The ``top`` kernels (None: all) of one call of ``fn`` by device time,
+    from a profiler trace: [(name, share of the call's kernel time, us)]. A
+    report, not a check."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        times = {}
+        for evt in prof.key_averages():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                t = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0.0)
+                times[evt.key] = times.get(evt.key, 0.0) + t
+        total = sum(times.values()) or float("nan")
+        ranked = sorted(times.items(), key=lambda kv: -kv[1])[:top]
+        return [(k[:70], t / total, t) for k, t in ranked]
+    except Exception as err:  # the trace is a report, not a check
+        print(f"    profiler trace failed: {err!r}")
+        return []
+
+
+def layout_kernels(kernels: list) -> list:
+    """cuDNN's NHWC <-> NCHW conversions among a trace's kernels."""
+    return [(k, share) for k, share, _ in kernels
+            if any(w in k.lower() for w in ("nchwtonhwc", "nhwctonchw", "transpose"))]
+
+
+def stride2_probe(model) -> list:
+    """d1-d3's first 3x3 stride-2 conv alone at its B=CELL_BATCH input,
+    channels_last, f32 with TF32 off and bf16: device us (CUDA events) of
+    the TF-SAME F.pad (0, 1) alone, of the convolution alone on the padded
+    map, and of the two as the model runs them."""
+    import torch
+    import torch.nn.functional as F
+
+    from wsinsight_tpu_torch.engine.runner import tf32_flags
+
+    out = []
+    dev = torch.device("cuda", 0)
+    for i, (ch, hw) in enumerate(((128, 256), (256, 128), (512, 64)), start=1):
+        conv = getattr(model, f"d{i}").units[0].conv2
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn((CELL_BATCH, ch, hw, hw), device=dev, dtype=dt).contiguous(
+                memory_format=torch.channels_last)
+            w = conv.weight.to(dt)
+            xp = F.pad(x, conv._side_pad)
+            with torch.inference_mode(), tf32_flags(False):
+                pad = _cuda_ms(lambda: F.pad(x, conv._side_pad), reps=10) * 1e3
+                alone = _cuda_ms(lambda: F.conv2d(xp, w, None, 2), reps=10) * 1e3
+                both = _cuda_ms(lambda: F.conv2d(F.pad(x, conv._side_pad), w, None, 2),
+                                reps=10) * 1e3
+            out.append({"conv": f"d{i}.units.0.conv2", "in": [CELL_BATCH, ch, hw, hw],
+                        "dtype": str(dt)[6:], "pad_us": pad, "conv_us": alone, "both_us": both,
+                        "padded_channels_last": xp.is_contiguous(
+                            memory_format=torch.channels_last)})
+            del x, w, xp
+    return out
+
+
+def hovernet_window(path, nuclei, ps: int, halo: int):
+    """(o)'s resident batches: the CELL_GRID x CELL_GRID halo grid of ps px
+    patches over the window of (l)'s slide (on a 512 px grid) that holds the
+    most drawn nuclei, as (CELL_BATCHES, CELL_BATCH, ps, ps, 3) uint8 in
+    canvas order; the drawn nuclei's mask over the patches' interiors (the
+    canvas); the window's origin."""
+    import cv2
+
+    from wsinsight_tpu_torch.uri_path import URIPath
+    from wsinsight_tpu_torch.wsi import get_wsi_cls
+
+    out_px = ps - 2 * halo
+    side = CELL_GRID * out_px
+    span = side + 2 * halo
+    centres, radii, angles = nuclei
+    starts = range(0, CELL_SLIDE_PX - span + 1, 512)
+    x0, y0 = max(((x, y) for y in starts for x in starts), key=lambda o: int(
+        ((centres >= o) & (centres < (o[0] + span, o[1] + span))).all(axis=1).sum()))
+    slide = get_wsi_cls()(URIPath(path))
+    try:
+        region = slide.read_region_array((x0, y0), 0, (span, span))
+    finally:
+        slide.close()
+    mask = np.zeros((span, span), np.uint8)
+    for (x, y), (rx, ry), a in zip(centres, radii, angles):
+        cv2.ellipse(mask, (int(x) - x0, int(y) - y0), (int(rx), int(ry)), float(a), 0, 360, 1, -1)
+    idx = np.arange(CELL_GRID * CELL_GRID)
+    data = np.stack([region[r:r + ps, c:c + ps] for r, c in zip(idx // CELL_GRID * out_px,
+                                                                idx % CELL_GRID * out_px)])
+    return (data.reshape(CELL_BATCHES, CELL_BATCH, ps, ps, 3),
+            mask[halo:halo + side, halo:halo + side] > 0, (x0, y0))
+
+
+def hovernet_np_head(engines, images, mask) -> dict:
+    """Set the NP head of ``engines``' HoVer-Nets (one seeded model: parity
+    and bf16 on the card, then any others) from a probe of ``images`` through
+    the first two, as (p) sets StarDist's prob head: the foreground logit is
+    the head's input features projected on their mean inside the drawn
+    nuclei (``mask``, over the outputs) less their mean outside, scaled to a
+    spread of 4, less the projection's quantile at the drawn nuclei's share
+    of the probe; the background logit is 0. The seeded head puts the
+    foreground wherever its weights do (on (l)'s slide: nowhere), so NP's
+    decisions would not be compared. Returns what was chosen and, as a
+    report, the seeded head's bf16-vs-parity flip share on the probe, its
+    logits cut at the same foreground share."""
+    import torch
+
+    feats, logits = [], []
+    for engine in engines[:2]:
+        got = []
+        conv = engine.model.decoder.np.u0.conv
+        hook = conv.register_forward_hook(lambda m, i, o: got.append(i[0].float()))
+        try:
+            out = engine.run_batch(images)["nuclei_binary_map"].float()
+        finally:
+            hook.remove()
+        feats.append(got[0])
+        logits.append((out[:, 1] - out[:, 0]).cpu().numpy())
+    share = float(mask.mean())
+    cut = np.quantile(logits[0], 1 - share)
+    seeded_flip = float(np.mean((logits[0] > cut) != (logits[1] > cut)))
+    f = feats[0].permute(0, 2, 3, 1)  # (B, H, W, 64)
+    inside = torch.from_numpy(mask).to(f.device)
+    with torch.inference_mode():
+        w = f[inside].mean(0) - f[~inside].mean(0)
+        proj = (f @ w).cpu().numpy()
+    scale = 4.0 / float(proj.std())
+    thr = float(np.quantile(proj, 1 - share))
+    with torch.no_grad():
+        for engine in engines:
+            conv = engine.model.decoder.np.u0.conv
+            conv.weight.zero_()
+            conv.weight[1, :, 0, 0] = (w * scale).to(conv.weight.device)
+            conv.bias.zero_()
+            conv.bias[1] = -thr * scale
+    return {"foreground_share": share, "logit_scale": scale,
+            "seeded_head_bf16_flip": seeded_flip,
+            "agrees_with_drawn_on_probe": float(np.mean((proj > thr) == mask))}
+
+
+def hovernet_phase(check, kernels, card, cell_slide) -> dict:
+    """(o): HoVer-Net fast through CellEngine in parity and bf16 on resident
+    batches (as (g), cut from (l)'s slide), its results against the CPU and
+    between the modes, then (l)'s slide through the halo grid -> stitch_slide
+    -> finalize -> the CSV in bf16."""
+    import pandas as pd
+    import torch
+
+    from wsinsight_tpu_torch.cli.infer import default_infer_workers, default_stitch_workers
+    from wsinsight_tpu_torch.engine import CellEngine, TileRemapStitcher
+    from wsinsight_tpu_torch.engine.runner import write_slide_csv
+    from wsinsight_tpu_torch.patchlib import plan_slide
+    from wsinsight_tpu_torch.uri_path import URIPath
+    from wsinsight_tpu_torch.utils.workers import governed_workers
+    from wsinsight_tpu_torch.zoo import get_registered_model
+
+    t_o = time.perf_counter()
+    path, _, nuclei, _ = cell_slide
+    handle = get_registered_model(HOVERNET_MODEL)
+    cfg = handle.config
+    ps, halo = cfg.patch_size_pixels, cfg.halo_size_pixels
+    out_px = ps - 2 * halo
+    side = CELL_GRID * out_px
+    data, drawn, origin = hovernet_window(path, nuclei, ps, halo)
+    idx = np.arange(CELL_BATCHES * CELL_BATCH).reshape(CELL_BATCHES, CELL_BATCH)
+    xy = np.stack([idx % CELL_GRID * out_px - halo, idx // CELL_GRID * out_px - halo,
+                   np.full_like(idx, ps), np.full_like(idx, ps)], axis=-1)
+    t0 = time.perf_counter()
+    engines = {m: CellEngine(handle, mixed_precision=m, init_random=True, seed=SEED)
+               for m in (False, True)}
+    cpu_engine = CellEngine(handle, init_random=True, seed=SEED, device="cpu")
+    n_params = sum(p.numel() for p in engines[False].model.parameters())
+    print(f"(o) {HOVERNET_MODEL} (HoVer-Net fast, {n_params / 1e6:.2f} M parameters, seeded;"
+          f" {ps} px, halo {halo}, transform {[t.name for t in cfg.transform]}):"
+          f" {CELL_BATCHES} batches of B={CELL_BATCH} patches of (l)'s slide at {origin} (drawn"
+          f" nuclei on {drawn.mean():.2%} of the canvas) into a {side}^2 canvas; three engines"
+          f" built in {time.perf_counter() - t0:.1f} s; {card}")
+    # the probe: every 8th patch, spread over the window
+    probe = data.reshape(-1, ps, ps, 3)[::CELL_BATCHES]
+    probe_mask = drawn.reshape(CELL_GRID, out_px, CELL_GRID, out_px).transpose(0, 2, 1, 3)
+    probe_mask = np.ascontiguousarray(probe_mask.reshape(-1, out_px, out_px)[::CELL_BATCHES])
+    head = hovernet_np_head([engines[False], engines[True], cpu_engine], probe, probe_mask)
+    print(f"    NP head set from a probe of {len(probe)} patches: {head}")
+    stitchers, stats = {}, {"parameters": n_params, "window": list(origin), "np_head": head}
+    for mixed, engine in engines.items():
+        mode = "bf16" if mixed else "parity"
+        warm = TileRemapStitcher(cfg.num_classes, side, side, out_px, halo, 0.25,
+                                 cfg.spacing_um_px)
+        run_cells(engine, warm, data[:1], xy[:1])  # warm-up: cuDNN plans, pinned buffers
+        st = TileRemapStitcher(cfg.num_classes, side, side, out_px, halo, 0.25,
+                               cfg.spacing_um_px)
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels:
+            fn.launches = 0
+        secs = run_cells(engine, st, data, xy)
+        counts = {name: fn.launches for fn, name in kernels.items()}
+        stitchers[mode] = st
+        x = engine.put(data[1])
+        pred = engine.dispatch(x)
+        fwd = _cuda_ms(lambda: engine.dispatch(x), reps=3)
+        post = _cuda_ms(lambda: st.device_postprocess(pred), reps=10)
+        every = top_kernels(lambda: engine.dispatch(x), top=None)
+        top, layout = every[:4], layout_kernels(every)
+        stats[mode] = {"patches_s": CELL_BATCHES * CELL_BATCH / secs,
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       "forward_ms": fwd, "post_ms": post, "launches": counts,
+                       "top_kernels": top, "kernels_in_trace": len(every),
+                       "layout_kernels": layout}
+        print(f"    {mode}: {stats[mode]['patches_s']:.1f} patches/s resident, peak"
+              f" {stats[mode]['peak_gib']:.2f} GiB; device per batch: forward {fwd:.2f} ms"
+              f" ({CELL_BATCH / fwd * 1e3:.1f} patches/s), post-process {post:.2f} ms; {card}")
+        print(f"    {mode} forward's top kernels (profiler, share of kernel time): "
+              + "; ".join(f"{k} {v:.1%}" for k, v, _ in top))
+        print(f"    {mode} forward's layout conversions among its {len(every)} kernels: "
+              + ("; ".join(f"{k} {v:.1%}" for k, v in layout) or "none"))
+        check(counts == {"fused_preprocess": 0, "window_attention": 0},
+              f"(o) {mode}: K1 and K2 launches over HoVer-Net {counts} (0: ToTensor takes the"
+              " torch preprocess, and the model has no attention)")
+        del x, pred
+    probe = stats["stride2"] = stride2_probe(engines[False].model)
+    for c in probe:
+        print(f"    {c['conv']} alone, in {c['in']} channels_last, {c['dtype']}: the TF-SAME"
+              f" F.pad {c['pad_us']:.1f} us (its output channels_last:"
+              f" {c['padded_channels_last']}), the convolution on the padded map"
+              f" {c['conv_us']:.1f} us, both {c['both_us']:.1f} us")
+    print(f"    {_smi('clocks.sm,power.draw,temperature.gpu')} (SM clock, power, temperature)")
+
+    on_card = engines[False].run_batch(data[0, :2])
+    on_host = cpu_engine.run_batch(data[0, :2])
+    err = max(float((on_card[k].cpu() - on_host[k]).abs().max())
+              for k in ("nuclei_binary_map", "hv_map", "nuclei_type_map"))
+    stats["card_vs_cpu"] = err
+    check(err <= 1e-3, f"(o) parity on the card vs the CPU, 2 patches: max |d| of the maps"
+          f" {err:.3g} (<= 1e-3)")
+    p32, p16 = stitchers["parity"], stitchers["bf16"]
+    fg32, fg16 = p32.np_map > 0.5, p16.np_map > 0.5
+    np_flip = float(np.mean(fg16 != fg32))
+    d_np = float(np.abs(p16.np_map - p32.np_map).max())
+    stats["foreground"] = {"parity": float(fg32.mean()), "bf16": float(fg16.mean()),
+                           "drawn": float(drawn.mean()),
+                           "agrees_with_drawn": float(np.mean(fg32 == drawn))}
+    stats["bf16_np_flip"] = np_flip
+    check(0.05 <= fg32.mean() <= 0.95,
+          f"(o) parity's NP > 0.5 on {fg32.mean():.2%} of the canvas (5-95%: decisions to"
+          f" compare; the drawn nuclei cover {drawn.mean():.2%}, the map agrees with them on"
+          f" {stats['foreground']['agrees_with_drawn']:.2%})")
+    check(np_flip <= 0.01, f"(o) bf16 vs parity over {side}x{side} px: NP > 0.5 differs on"
+          f" {np_flip:.3%} (<= 1%); max |d| NP {d_np:.3g}")
+    for mode, st in (("parity", p32), ("bf16", p16)):
+        ok = all(bool(np.isfinite(m).all()) for m in (st.np_map, st.hv_map, st.tp_map))
+        tp_sum = float(np.abs(st.tp_map.sum(-1) - 1.0).max())
+        check(ok and tp_sum <= cfg.num_classes * 0.5 / 255 + 1e-6,
+              f"(o) {mode} canvas finite, TP rows sum to 1 within {tp_sum:.3g} (quantized"
+              " transfer, <= K/2 levels)")
+    engine = engines[True]
+    del engines, cpu_engine, stitchers, p32, p16, fg32, fg16, on_card, on_host, st
+    torch.cuda.empty_cache()
+
+    # (l)'s slide through the halo grid, in bf16, with the HV head zeroed as
+    # the CPU tests' end-to-end runs do: seeded HV fields leave the watershed
+    # no seeds, a zero field leaves each NP component one instance
+    with torch.no_grad():
+        engine.model.decoder.hv.u0.conv.weight.zero_()
+        engine.model.decoder.hv.u0.conv.bias.zero_()
+    t0 = time.perf_counter()
+    plan, ctx, *_ = plan_slide(URIPath(path), None, None, None, ps, cfg.spacing_um_px, halo,
+                               object_based=True, object_detection="end2end")
+    plan_s = time.perf_counter() - t0
+    dims = ctx.slide.dimensions
+    ctx.slide.close()
+    n = len(plan.coords)
+    n_batches = -(-n // CELL_BATCH)
+    workers = governed_workers(default_infer_workers())
+    stitch_workers = default_stitch_workers()
+    st, out, run = run_cell_slide(engine, kernels, path, plan.coords, plan.patch_size, dims,
+                                  workers, stitch_workers)
+    stats["slide"] = run
+    stats["slide"]["plan_s"] = plan_s
+    host = run["host_shares"]
+    print(f"    (l)'s slide, bf16: halo grid {n} patches ({n_batches} batches, plan {plan_s:.2f}"
+          f" s); {run['patches_s']:.1f} patches/s without the finalize ({run['wall_s']:.2f} s),"
+          f" {run['patches_s_with_finalize']:.1f} with it; device busy {run['busy']:.1%}; peak"
+          f" {run['peak_gib']:.2f} GiB; finalize {run['finalize_s']:.2f} s on"
+          f" {stitch_workers} worker(s), {run['tiles']} tiles; foreground"
+          f" {run['foreground']:.2%}, {run['instances']} instances ({len(nuclei[0])} nuclei"
+          f" drawn); {card}")
+    print(f"    main thread, share of the wall time: waiting for decoded batches"
+          f" {host['decode_wait']:.1%}, put {host['put']:.1%}, dispatch {host['dispatch']:.1%},"
+          f" scatter {host['scatter']:.1%}, the rest {1 - sum(host.values()):.1%}")
+    check(run["batches"] == n_batches and run["launches"] == {"fused_preprocess": 0,
+                                                                "window_attention": 0},
+          f"(o) slide: {run['batches']} batches, K1 and K2 launches {run['launches']} (0)")
+    boxes, probs, polys = out
+    inside = all(len(r) >= 3 and (r.min(0) >= b[0, :2]).all()
+                 and (r.max(0) <= b[0, :2] + b[0, 2:] - 1).all() for b, r in zip(boxes, polys))
+    check(0 < len(boxes) == len(probs) == len(polys) and inside,
+          f"(o) slide: boxes, probabilities and polygons aligned ({len(boxes)} instances, > 0),"
+          " every polygon inside its bbox")
+    tmp = tempfile.TemporaryDirectory()
+    csv = URIPath(f"{tmp.name}/hovernet.csv")
+    k = cfg.num_classes
+    write_slide_csv(csv, np.concatenate(boxes) if boxes else np.zeros((0, 4), np.int32),
+                    np.concatenate(probs) if probs else np.zeros((0, k), np.float32),
+                    cfg.class_names)
+    df = pd.read_csv(str(csv))
+    p = df[[f"prob_{c}" for c in cfg.class_names]].to_numpy(np.float64)
+    dsum = float(np.abs(p.sum(axis=1) - 1.0).max()) if len(p) else 0.0
+    check(0 < len(df) == len(boxes) and bool(np.isfinite(p).all())
+          and dsum <= k * 0.5 / 255 + 1e-6,
+          f"(o) slide: the CSV has one row per instance ({len(df)}), rows finite, summing to 1"
+          f" within {dsum:.3g}")
+    st.close()
+    tmp.cleanup()
+    del engine
+    torch.cuda.empty_cache()
+    print(f"    (o) took {time.perf_counter() - t_o:.1f} s;"
+          f" {_smi('clocks.sm,power.draw,temperature.gpu')} (SM clock, power, temperature)")
+    return stats
+
+
+def drawn_stardist_maps(nuclei, side: int):
+    """The prob and dist maps a perfect StarDist gives for the drawn nuclei,
+    on its grid (side / GRID): prob 1 - the elliptic radius of the pixel in
+    its nucleus (1 at the centre, 0 at the edge; the last drawn of two
+    overlapping nuclei owns their overlap, 0 outside), dist the 32 rays'
+    exact lengths to that nucleus's edge, in full-resolution px."""
+    import cv2
+
+    from wsinsight_tpu_torch.models.stardist import GRID, N_RAYS
+
+    centres, radii, angles = nuclei
+    g = side // GRID
+    owner = np.zeros((g, g), np.int32)
+    for i, ((x, y), (rx, ry), a) in enumerate(zip(centres, radii, angles), start=1):
+        cv2.ellipse(owner, (int(x) // GRID, int(y) // GRID), (int(rx) // GRID + 1,
+                    int(ry) // GRID + 1), float(a), 0, 360, i, -1)
+    ys, xs = np.nonzero(owner)
+    k = owner[ys, xs] - 1
+    theta = np.deg2rad(angles[k]).astype(np.float32)
+    a, b = radii[k, 0].astype(np.float32), radii[k, 1].astype(np.float32)
+    dx = (xs * GRID - centres[k, 0]).astype(np.float32)
+    dy = (ys * GRID - centres[k, 1]).astype(np.float32)
+    u = dx * np.cos(theta) + dy * np.sin(theta)
+    v = -dx * np.sin(theta) + dy * np.cos(theta)
+    rho2 = (u / a) ** 2 + (v / b) ** 2
+    inside = rho2 < 1
+    ys, xs, theta, a, b, u, v, rho2 = (t[inside] for t in (ys, xs, theta, a, b, u, v, rho2))
+    prob = np.zeros((g, g), np.float32)
+    prob[ys, xs] = 1 - np.sqrt(rho2)
+    phis = np.linspace(0, 2 * np.pi, N_RAYS, endpoint=False, dtype=np.float32)
+    eu = np.cos(phis[None] - theta[:, None])  # the ray in the ellipse's frame
+    ev = np.sin(phis[None] - theta[:, None])
+    qa = (eu / a[:, None]) ** 2 + (ev / b[:, None]) ** 2
+    qb = 2 * (u[:, None] * eu / a[:, None] ** 2 + v[:, None] * ev / b[:, None] ** 2)
+    qc = (rho2 - 1)[:, None]
+    dist = np.zeros((g, g, N_RAYS), np.float32)
+    dist[ys, xs] = (-qb + np.sqrt(qb * qb - 4 * qa * qc)) / (2 * qa)
+    return prob, dist
+
+
+def stardist_weights(path, drawn_prob, nuclei) -> tuple[dict, dict, np.ndarray]:
+    """Seeded StarDistUNet weights whose heads see (l)'s drawn nuclei: the
+    U-Net seeded (conv weights normal with variance 2/fan-in, biases
+    N(0, 0.1^2)); then, from a probe of the first block (its tile, 4224 px
+    square, normalized by the slide's percentiles), the prob head's weights
+    are the features' mean inside the drawn nuclei's inner halves less their
+    mean outside any nucleus, and its bias the threshold (0.5x, 0.75x, 1x or
+    1.5x the inner halves' pixel count above 0.5) whose NMS keeps the count
+    nearest the block's drawn nuclei; the dist head gives rays of
+    STARDIST_RAY px with a seeded spread of 1.5 px. Returns (the port's state
+    dict, what was chosen, the probe's normalized tile)."""
+    import torch
+
+    from wsinsight_tpu_torch.models import stardist as sd
+    from wsinsight_tpu_torch.uri_path import URIPath
+    from wsinsight_tpu_torch.wsi import get_wsi_cls
+
+    gen = torch.Generator().manual_seed(SEED)
+    model = sd.StarDistUNet()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
+                               * (2.0 / m.weight[0].numel()) ** 0.5)
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.1)
+    slide = get_wsi_cls()(URIPath(path))
+    try:
+        level0 = slide.read_region_array((0, 0), 0, slide.dimensions)
+    finally:
+        slide.close()
+    # the plan's normalization: the whole image's percentiles (here of every
+    # 4th pixel of each 4th row)
+    lo, hi = (float(v) for v in np.percentile(level0[::4, ::4].astype(np.float32), (1.0, 99.8)))
+    tile = (level0[:STARDIST_BLOCK, :STARDIST_BLOCK].astype(np.float32) - lo) / max(hi - lo, 1e-20)
+    del level0
+    g = STARDIST_BLOCK // sd.GRID
+    drawn = drawn_prob[:g, :g]
+    dev = torch.device("cuda", 0)
+    net = sd.StarDist2D(model.state_dict(), device=dev)
+    feats = []
+    hook = net.model.prob.register_forward_hook(lambda m, i, o: feats.append(i[0]))
+    from wsinsight_tpu_torch.engine.runner import tf32_flags
+
+    with torch.inference_mode(), tf32_flags(False):
+        net.model(torch.from_numpy(tile[None]).to(dev))
+        hook.remove()
+        f = feats[0][0]  # (128, g, g)
+        pos = torch.from_numpy(drawn > 0.5).to(dev)
+        neg = torch.from_numpy(drawn == 0).to(dev)
+        # the mean difference: Fisher's discriminant finds more of the drawn
+        # nuclei but cancels ten times more in w.f, which the card's and the
+        # CPU's roundings then move past prob's 1e-5
+        w = f[:, pos].mean(1) - f[:, neg].mean(1)
+        proj = torch.einsum("chw,c->hw", f, w)
+        dist_w, dist_b = net.model.dist.weight[:, :, 0, 0], net.model.dist.bias
+        rays = torch.einsum("chw,rc->rhw", f, dist_w) + dist_b[:, None, None]
+        spread = 1.5 / float(rays.std())
+        shift = STARDIST_RAY - float(rays.mean()) * spread
+        flat = proj.flatten().sort(descending=True).values
+    scale = 4.0 / float(proj.std())  # prob's logits of a few units: no saturation
+    n_pos = int(pos.sum())
+    # the block's drawn nuclei, as the plan's interior filter counts them
+    centres = nuclei[0]
+    in_block = int(((centres < 4096).all(axis=1)).sum())
+    chosen = None
+    proj_np = proj.cpu().numpy()
+    rays_np = (rays.permute(1, 2, 0).cpu().numpy() * spread + shift)
+    for share in (0.5, 0.75, 1.0, 1.5):
+        thr = float(flat[int(share * n_pos)])
+        prob = 1 / (1 + np.exp(-(proj_np - thr) * scale))
+        scores, cands, r = sd._ray_candidates(prob[:2048, :2048], rays_np[:2048, :2048], 0.5)
+        kept = len(sd._nms(scores, cands, r, 0.4))
+        print(f"    (p) prob threshold at {share}x the inner halves' {n_pos} px: {len(scores)}"
+              f" candidates, {kept} kept by the NMS in the block's interior (drawn there:"
+              f" {in_block})")
+        if chosen is None or abs(kept - in_block) < abs(chosen[1] - in_block):
+            chosen = (share, kept, thr, len(scores))
+    share, kept, thr, n_cands = chosen
+    with torch.no_grad():
+        net.model.prob.weight.copy_((w * scale).reshape(1, -1, 1, 1).cpu())
+        net.model.prob.bias.fill_(-thr * scale)
+        net.model.dist.weight.mul_(spread)
+        net.model.dist.bias.mul_(spread).add_(shift)
+    state = {k: v.detach().cpu() for k, v in net.model.state_dict().items()}
+    what = {"threshold_share": share, "candidates_probe": n_cands, "kept_probe": kept,
+            "drawn_in_block_interior": in_block, "inner_px": n_pos, "prob_scale": scale,
+            "ray_mean": STARDIST_RAY, "ray_spread": 1.5}
+    del net, feats, f, proj, rays
+    torch.cuda.empty_cache()
+    return state, what, tile
+
+
+def stardist_phase(check, kernels, card, cell_slide) -> dict:
+    """(p): StarDist pre-detection over (l)'s slide (plan_slide with
+    object_based=True, object_detection="stardist", seeded weights read from
+    a temporary WSINSIGHT_MODEL_DIR), timed by step; the NMS on the drawn
+    nuclei's own maps; the forward on the card vs the CPU; then the plan's
+    nuclei through the object-based lymphocyte classifier in bf16 -> the CSV
+    -> write_geojsons."""
+    import pandas as pd
+    import torch
+    from scipy.spatial import cKDTree
+
+    from wsinsight_tpu_torch.cli._options import compute_overlap
+    from wsinsight_tpu_torch.cli.infer import default_infer_workers
+    from wsinsight_tpu_torch.engine import ClassifierEngine
+    from wsinsight_tpu_torch.engine.runner import write_slide_csv
+    from wsinsight_tpu_torch.geometry import polygon_centroid
+    from wsinsight_tpu_torch.models import stardist as sd
+    from wsinsight_tpu_torch.models.convert import save_flax_msgpack
+    from wsinsight_tpu_torch.patchlib import plan_slide
+    from wsinsight_tpu_torch.uri_path import URIPath
+    from wsinsight_tpu_torch.utils.profiling import hot_stage_report
+    from wsinsight_tpu_torch.utils.workers import governed_workers
+    from wsinsight_tpu_torch.writers import write_geojsons
+    from wsinsight_tpu_torch.zoo import (
+        ModelHandle,
+        ObjectDetectionConfiguration,
+        get_registered_model,
+        make_random_local_model,
+    )
+
+    t_p = time.perf_counter()
+    path, _, nuclei, _ = cell_slide
+    n_drawn = len(nuclei[0])
+    t0 = time.perf_counter()
+    drawn_prob, drawn_dist = drawn_stardist_maps(nuclei, CELL_SLIDE_PX)
+    maps_s = time.perf_counter() - t0
+    print(f"(p) StarDist over (l)'s slide ({CELL_SLIDE_PX}^2 px, {n_drawn} nuclei drawn); the"
+          f" drawn nuclei's own maps built in {maps_s:.1f} s; {card}")
+    t0 = time.perf_counter()
+    state, chosen, tile = stardist_weights(path, drawn_prob, nuclei)
+    print(f"    seeded weights from a probe of the first block in {time.perf_counter() - t0:.1f}"
+          f" s; chosen: {chosen}")
+    stats = {"weights": chosen, "drawn": n_drawn}
+
+    # the drawn nuclei's own maps through the candidates and the NMS
+    t0 = time.perf_counter()
+    scores, cands, rays = sd._ray_candidates(drawn_prob, drawn_dist, 0.5)
+    kept = sd._nms(scores, cands, rays, 0.4)
+    drawn_nms_s = time.perf_counter() - t0
+    near, _ = cKDTree(cands[kept]).query(nuclei[0].astype(np.float64))
+    found = float((near <= 2.0).mean())
+    stats["drawn_nms"] = {"candidates": len(scores), "kept": len(kept), "within_2px": found,
+                          "seconds": drawn_nms_s}
+    print(f"    NMS on the drawn nuclei's own maps: {len(scores)} candidates -> {len(kept)} kept"
+          f" of {n_drawn} drawn in {drawn_nms_s:.2f} s; {found:.2%} of the drawn nuclei have a"
+          " kept centre within 2 px")
+    check(0.8 * n_drawn <= len(kept) <= 1.05 * n_drawn and found >= 0.8,
+          f"(p) the NMS on the drawn maps keeps {len(kept)} for {n_drawn} drawn nuclei (80-105%:"
+          f" close ones suppress each other, an occluded one may split) and finds {found:.2%}"
+          " of the drawn centres within 2 px (>= 80%)")
+    del drawn_prob, drawn_dist, scores, cands, rays
+
+    # the forward on the card vs the CPU, one 512 px tile of the probe block
+    x0 = int(np.clip(nuclei[0][0, 0] - STARDIST_TILE // 2, 0, STARDIST_BLOCK - STARDIST_TILE))
+    y0 = int(np.clip(nuclei[0][0, 1] - STARDIST_TILE // 2, 0, STARDIST_BLOCK - STARDIST_TILE))
+    small = np.ascontiguousarray(tile[y0:y0 + STARDIST_TILE, x0:x0 + STARDIST_TILE])
+    maps, logits = [], []
+    w = state["prob.weight"].double().reshape(-1, 1, 1)
+    b = float(state["prob.bias"])
+    for where in ("cuda", "cpu"):
+        net, got = sd.StarDist2D(state, device=where), []
+        net.model.prob.register_forward_hook(lambda m, i, o: got.append(i[0][0].double().cpu()))
+        maps.append(net.predict_tile(small))
+        terms = got[0] * w  # (128, h, w): prob's pre-sigmoid logit is their sum plus b
+        logits.append((terms.sum(0) + b, terms.abs().sum(0) + abs(b)))
+    (card_p, card_d), (cpu_p, cpu_d) = maps
+    dp, dd = float(np.abs(card_p - cpu_p).max()), float(np.abs(card_d - cpu_d).max())
+    rel = float(((logits[0][0] - logits[1][0]).abs() / logits[1][1]).max())
+    stats["card_vs_cpu"] = {"prob": dp, "dist": dd, "prob_logit_rel": rel}
+    check(dp <= 1e-5 and dd <= 1e-3, f"(p) StarDist forward on the card vs the CPU, a"
+          f" {STARDIST_TILE}^2 tile at ({x0}, {y0}): max |d| prob {dp:.3g} (<= 1e-5), dist"
+          f" {dd:.3g} px (<= 1e-3)")
+    check(rel <= 1e-4, f"(p) the same: prob's pre-sigmoid logit differs by at most {rel:.3g} of"
+          " the size of its terms (sum of |w_c f_c| and |b|; <= 1e-4, whatever the head's"
+          " weights)")
+    del tile
+
+    # plan_slide in StarDist mode, each step timed
+    weights_dir = tempfile.TemporaryDirectory()
+    params = {name: {"kernel": state[f"{name}.weight"].permute(2, 3, 1, 0).numpy(),
+                     "bias": state[f"{name}.bias"].numpy()}
+              for name in {k.rsplit(".", 1)[0] for k in state}}
+    save_flax_msgpack(params, f"{weights_dir.name}/stardist_2D_versatile_he.msgpack")
+    cls_handle = get_registered_model(STARDIST_CLASSIFIER)
+    cfg = cls_handle.config
+    cfg.object_based = True
+    cfg.object_detection = ObjectDetectionConfiguration(name="stardist")
+    forwards = []  # (tile, start, end): CUDA events around each block's U-Net forward
+
+    def forward_start(module, args):
+        if isinstance(module, sd.StarDistUNet):
+            forwards.append((tuple(args[0].shape[1:3]), torch.cuda.Event(enable_timing=True),
+                             torch.cuda.Event(enable_timing=True)))
+            forwards[-1][1].record()
+
+    def forward_end(module, args, out):
+        if isinstance(module, sd.StarDistUNet):
+            forwards[-1][2].record()
+
+    class Counts(logging.Handler):
+        def emit(self, record):
+            counts.update(getattr(record, "stardist_counts", {}))
+
+    counts = {}
+    sd_log, handler = logging.getLogger(sd.__name__), Counts()
+    level = sd_log.level
+    sd_log.addHandler(handler)
+    sd_log.setLevel(logging.INFO)
+    hooks = (torch.nn.modules.module.register_module_forward_pre_hook(forward_start),
+             torch.nn.modules.module.register_module_forward_hook(forward_end))
+    saved_dir = os.environ.get("WSINSIGHT_MODEL_DIR")
+    os.environ["WSINSIGHT_MODEL_DIR"] = weights_dir.name
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hot_stage_report(reset=True)
+    for fn in kernels:
+        fn.launches = 0
+    try:
+        t0 = time.perf_counter()
+        planned = plan_slide(URIPath(path), None, None, None, cfg.patch_size_pixels,
+                             cfg.spacing_um_px, object_based=True, object_detection="stardist")
+        plan_s = time.perf_counter() - t0
+    finally:
+        for hook in hooks:
+            hook.remove()
+        sd_log.removeHandler(handler)
+        sd_log.setLevel(level)
+        if saved_dir is None:
+            os.environ.pop("WSINSIGHT_MODEL_DIR", None)
+        else:
+            os.environ["WSINSIGHT_MODEL_DIR"] = saved_dir
+    steps = {k.split(".", 1)[1] + "_s": v for k, v in hot_stage_report().items()
+             if k.startswith("stardist.")}
+    plan, ctx, *_ = planned
+    ctx.slide.close()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    plan_launches = {name: fn.launches for fn, name in kernels.items()}
+    torch.cuda.synchronize()
+    fwd_ms = [s.elapsed_time(e) for _, s, e in forwards]
+    n_nuclei, n_coords = len(plan.polygons), len(plan.coords)
+    stats["plan"] = {**steps, "forward_events_s": sum(fwd_ms) / 1e3, "plan_s": plan_s,
+                     "tiles": [list(t) for t, _, _ in forwards], "forward_ms": fwd_ms, **counts,
+                     "nuclei": n_nuclei, "coords": n_coords, "peak_gib": peak,
+                     "launches": plan_launches}
+    rest = plan_s - sum(steps.values())
+    print(f"    plan_slide (StarDist mode) {plan_s:.2f} s, by its stages (hot_stage, host clock):"
+          + ", ".join(f" {k[:-2]} {v:.3f} s" for k, v in steps.items())
+          + f"; the rest (thumbnail, segmentation, rings, coords) {rest:.2f} s; the U-Net forward"
+          f" per block of {[t for t, _, _ in forwards]}: {', '.join(f'{t:.1f}' for t in fwd_ms)}"
+          " ms (CUDA events)")
+    seen = cKDTree(np.stack([r[:-1].mean(0) for r in plan.polygons]).astype(np.float64))
+    near_model = float((seen.query(nuclei[0].astype(np.float64))[0] <= 4.0).mean())
+    stats["plan"]["drawn_within_4px"] = near_model
+    print(f"    {counts.get('candidates')} candidates over the blocks, {counts.get('interior')} in"
+          f" their interiors, {n_nuclei} nuclei kept ({n_drawn} drawn; {near_model:.1%} of those"
+          f" have a kept centre within 4 px), {n_coords} coords in tissue; peak {peak:.2f} GiB on"
+          f" the card; {card}")
+    stages = ("read_s", "normalize_s", "copy_in_s", "forward_s", "copy_out_s", "candidates_s",
+              "nms_s")
+    check(all(steps.get(k, 0.0) > 0 for k in stages),
+          f"(p) every stage of the plan timed: {sorted(steps)} (each > 0 s)")
+    check(len(forwards) == counts.get("blocks") == 4
+          and all(t == (STARDIST_BLOCK, STARDIST_BLOCK) for t, _, _ in forwards),
+          f"(p) 4 blocks of {STARDIST_BLOCK}^2 px through the U-Net on the card: {len(forwards)}"
+          f" forwards, {counts.get('blocks')} blocks logged")
+    check(5000 <= n_nuclei <= 20000 and 0 < n_coords <= n_nuclei
+          and all(len(r) == sd.N_RAYS + 1 and np.array_equal(r[0], r[-1]) for r in plan.polygons),
+          f"(p) {n_nuclei} nuclei (5,000-20,000), {n_coords} in tissue, each a closed star"
+          f" polygon of {sd.N_RAYS} rays")
+    check(plan_launches == {"fused_preprocess": 0, "window_attention": 0},
+          f"(p) K1 and K2 launches over StarDist {plan_launches} (0: convolutions only)")
+
+    # the plan's nuclei through the object-based classifier, bf16
+    tmp = tempfile.TemporaryDirectory()
+    _, weights = make_random_local_model("inception_v4nobn", cfg.num_classes, tmp.name,
+                                         resize_size=cfg.patch_size_pixels, seed=SEED)
+    engine = ClassifierEngine(ModelHandle(name=STARDIST_CLASSIFIER, config=cfg,
+                                          weights_path=str(weights)), mixed_precision=True)
+    ps = plan.patch_size
+    engine.run_batch(np.zeros((BATCH, ps, ps, 3), np.uint8), BATCH)  # warm-up
+    workers = governed_workers(default_infer_workers())
+    coords, probs, run = run_slide(engine, kernels, path, plan.coords, ps, workers)
+    stats["classifier"] = run
+    print(f"    {STARDIST_CLASSIFIER} (object-based, seeded, bf16) on the {n_coords} nuclei"
+          f" ({ps} px patches): {run['patches_s']:.1f} patches/s ({run['wall_s']:.2f} s), device"
+          f" busy {run['busy']:.1%}, peak {run['peak_gib']:.2f} GiB; {card}")
+    check(run["launches"] == {"fused_preprocess": 0, "window_attention": 0},
+          f"(p) the classifier's K1 and K2 launches {run['launches']} (0: Scale takes the torch"
+          " preprocess)")
+    results = URIPath(tmp.name) / "results"
+    (results / "model-outputs-csv").mkdir(parents=True, exist_ok=True)
+    csv = results / "model-outputs-csv" / "cells.csv"
+    write_slide_csv(csv, coords, probs, cfg.class_names)
+    overlap = compute_overlap(cfg, 0.0, 0.0, 0, object_based=True)
+    t0 = time.perf_counter()
+    write_geojsons(csvs=[csv], overlap=overlap, results_dir=results,
+                   output_dir="model-outputs-geojson", prefix="prob", num_workers=1,
+                   object_type="detection", set_classification=True, show_progress=False)
+    stats["geojson_s"] = time.perf_counter() - t0
+    df = pd.read_csv(str(csv))
+    with open(f"{results}/model-outputs-geojson/cells.geojson") as fh:
+        feats = json.load(fh)["features"]
+    centroids = {tuple(np.rint(polygon_centroid(r.astype(np.float64))).astype(int))
+                 for r in plan.polygons}
+    half = int(round(ps / 2))
+    own = all((int(x) + half, int(y) + half) in centroids for x, y in plan.coords)
+    p = df[[f"prob_{c}" for c in cfg.class_names]].to_numpy(np.float64)
+    dsum = float(np.abs(p.sum(axis=1) - 1.0).max())
+    check(len(df) == len(feats) == n_coords and own and bool(np.isfinite(p).all())
+          and dsum <= 1e-5 and all(f["properties"]["objectType"] == "detection" for f in feats),
+          f"(p) one CSV row ({len(df)}) and one GeoJSON detection ({len(feats)}) per planned"
+          f" nucleus ({n_coords}), each nucleus's star polygon among the plan's {n_nuclei};"
+          f" rows finite, summing to 1 within {dsum:.3g}; write_geojsons {stats['geojson_s']:.2f} s")
+    del engine
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+    weights_dir.cleanup()
+    print(f"    (p) took {time.perf_counter() - t_p:.1f} s;"
+          f" {_smi('clocks.sm,power.draw,temperature.gpu')} (SM clock, power, temperature)")
+    return stats
+
+
 def main() -> int:
     import torch
 
     # (a) ------------------------------------------------------------------
+    # (p) reads StarDist's stages from hot_stage_report(); the flag is read
+    # when the port is first imported
+    os.environ["WSINSIGHT_STREAM_PROFILE"] = "1"
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
@@ -1675,9 +2415,19 @@ def main() -> int:
     # (l) ------------------------------------------------------------------
     for engine in slide_engines.values():
         engine.model.to(dev)
-    cell_slide = cell_slide_phase(check, kernels, card, rng, slide_engines)
+    nuclei_tmp = tempfile.TemporaryDirectory()
+    nuclei_path = f"{nuclei_tmp.name}/cells.tif"
+    nuclei_slide = (nuclei_path, *write_nuclei_slide(nuclei_path, CELL_SLIDE_PX, rng))
+    cell_slide = cell_slide_phase(check, kernels, card, rng, slide_engines, nuclei_slide)
     del slide_engines
     torch.cuda.empty_cache()
+
+    # (o) ------------------------------------------------------------------
+    hovernet = hovernet_phase(check, kernels, card, nuclei_slide)
+
+    # (p) ------------------------------------------------------------------
+    stardist = stardist_phase(check, kernels, card, nuclei_slide)
+    nuclei_tmp.cleanup()
 
     if check.failed:
         print(f"chip_smoke: {len(check.failed)} check(s) failed", file=sys.stderr)
@@ -1707,6 +2457,7 @@ def main() -> int:
         "bound_by": k1_main["bound_by"],
         "library_ms": None,
         "at": f"B={BATCH} {k1_main['shape']} {k1_main['dtype']}",
+        "not_launched_on": NO_KERNEL_PATHS,
         "shapes": k1_shapes,
     }, {
         "name": "window_attention",
@@ -1721,12 +2472,15 @@ def main() -> int:
         "bound_by": k2_main["bound_by"],
         "library_ms": k2_main["library_ms"],
         "at": f"B={CELL_BATCH} {k2_main['shape']} {k2_main['dtype']}",
+        "not_launched_on": NO_KERNEL_PATHS,
         "shapes": k2["shapes"],
     }]}
     print(json.dumps({"zoo": zoo}))
     print(json.dumps({"cells": cell}))
     print(json.dumps({"slide": slide["stats"]}))
     print(json.dumps({"cell_slide": cell_slide["stats"]}))
+    print(json.dumps({"hovernet": hovernet}))
+    print(json.dumps({"stardist": stardist}))
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -370,21 +370,6 @@ def test_source_input_options_match_jax(slides, compression, kwargs, image_hw, s
         np.testing.assert_array_equal(a.images, b.images)
 
 
-@pytest.mark.parametrize("opts,item", [
-    (dict(object_based=True, object_detection="stardist"), 7),
-])
-def test_plan_slide_refuses_unported_planners(slides, opts, item):
-    from wsinsight_tpu_torch.patchlib import plan_slide
-    from wsinsight_tpu_torch.uri_path import URIPath
-
-    kw = dict(qupath_detection_dir=None, qupath_geojson_detection_dir=None,
-              qupath_geojson_annotation_dir=None)
-    kw.update(opts)
-    with pytest.raises(NotImplementedError, match=f"Queue 1, item {item}"):
-        plan_slide(URIPath(str(slides["deflate"])), patch_size_px=350, patch_spacing_um_px=0.25,
-                   thumbsize=(512, 512), **kw)
-
-
 @pytest.mark.parametrize("patch_px,halo,step", [(256, 46, 164), (128, 16, 96)])
 def test_plan_slide_halo_grid_matches_jax(slides, tmp_path, patch_px, halo, step):
     """End2end cell models plan the halo grid: overlap 2*halo/patch, so the
@@ -449,8 +434,7 @@ def test_cli_refuses_unported_options(slides, tmp_path, args, item):
     assert not (tmp_path / "r" / "patches").exists()
 
 
-@pytest.mark.parametrize("model,item", [("hovernet_fast_pannuke", 7),
-                                        ("CellViT-Virchow-x40-AMP", 8)])
+@pytest.mark.parametrize("model,item", [("CellViT-Virchow-x40-AMP", 8)])
 def test_cli_refuses_object_based_models(slides, tmp_path, model, item):
     from click.testing import CliRunner
 
@@ -460,6 +444,32 @@ def test_cli_refuses_object_based_models(slides, tmp_path, model, item):
         res = CliRunner().invoke(cli, [cmd, "-i", str(slides["deflate"].parent), "-o",
                                        str(tmp_path / "r"), "-m", model])
         assert res.exit_code == 2 and f"Queue 1, item {item}" in res.output, res.output
+
+
+@pytest.mark.parametrize("model,object_detection", [
+    ("hovernet_fast_pannuke", None),  # end2end, from the registry's config
+    ("pancancer-lymphocytes-inceptionv4.tcga", "stardist"),
+    ("pancancer-lymphocytes-inceptionv4.tcga", None),  # object-based, no detector named
+])
+def test_refuse_unported_model_lets_hovernet_and_stardist_through(model, object_detection):
+    """HoVer-Net and object-based StarDist configs pass the CLI's refusal;
+    Virchow (Queue 1, item 8) still stops there."""
+    import click
+
+    from wsinsight_tpu_torch.cli import _options as opt
+    from wsinsight_tpu_torch.zoo import ObjectDetectionConfiguration, get_registered_model
+
+    handle = get_registered_model(model)
+    if object_detection is not None or not handle.config.object_based:
+        handle.config.object_based = True
+        handle.config.object_detection = (None if object_detection is None else
+                                          ObjectDetectionConfiguration(name=object_detection))
+    flags = opt.model_flags(handle)
+    assert flags["object_based"]
+    opt.refuse_unported_model(flags, handle.config.architecture)
+    virchow = get_registered_model("CellViT-Virchow-x40-AMP")
+    with pytest.raises(click.UsageError, match="Queue 1, item 8"):
+        opt.refuse_unported_model(opt.model_flags(virchow), virchow.config.architecture)
 
 
 def test_cli_refuses_multi_host(monkeypatch, tmp_path):

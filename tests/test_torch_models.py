@@ -148,7 +148,7 @@ def test_registry_copy_matches_jax():
     assert get_registered_model(name).config.to_dict() == jax_get(name).config.to_dict()
 
 
-@pytest.mark.parametrize("arch", ["hovernet_fast", "not_a_net"])
+@pytest.mark.parametrize("arch", ["hoptimus", "not_a_net"])
 def test_unported_architecture_raises(arch):
     with pytest.raises(UnknownArchitectureError, match="not yet ported"):
         create_model(arch, 2)
@@ -170,6 +170,8 @@ PORT_MODULES = (
     # the zoo's other classifiers, the exporters and tosbu
     "models.vgg", "models.inception_v4", "writers", "writers.common", "writers.wkt",
     "writers.geojson", "writers.omecsv", "writers.qupath", "cli.convert_csv_to_sbubmi",
+    # HoVer-Net and StarDist
+    "models.hovernet", "models.stardist",
 )
 
 

@@ -310,18 +310,15 @@ def require_h5py() -> None:
 
 
 # Cell architectures of the registry whose model waits for a Queue 1 item.
-_UNPORTED_CELL_ARCHITECTURES = {"hovernet_fast": 7, "cellvit_virchow": 8}
+_UNPORTED_CELL_ARCHITECTURES = {"cellvit_virchow": 8}
 
 
 def refuse_unported_model(flags: dict, architecture: str) -> None:
     """click.UsageError, before any stage runs, for a cell model whose path
-    the port does not have: StarDist pre-detection and HoVer-Net (item 7),
-    Virchow's encoder (item 8). End2end CellViT models run."""
+    the port does not have: Virchow's encoder (item 8). End2end CellViT and
+    HoVer-Net models and StarDist pre-detection run."""
     if not flags["object_based"]:
         return
-    od = flags["object_detection"]
-    if od != "end2end":
-        raise click.UsageError(not_ported(f"object-based models (object_detection={od!r})", 7))
     item = _UNPORTED_CELL_ARCHITECTURES.get(architecture.lower().replace("-", "_"))
     if item is not None:
         raise click.UsageError(not_ported(f"the {architecture} cell model", item))

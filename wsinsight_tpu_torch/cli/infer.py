@@ -7,12 +7,12 @@ variable bound only in QuPath branches.
 
 Counterpart of wsinsight_tpu/cli/infer.py, with the same options. The port
 runs patch classification into the model-output CSVs, with --fast-input and
-stain-normalized models, end2end cell models (CellViT: one row per nucleus,
-the polygons into the patch files) and the QuPath pseudo-models, and writes
-the GeoJSON (--geojson) and OME-CSV (--omecsv) exports of those CSVs. The
-analytics (--hplot, --cme-*) and StarDist / HoVer-Net models raise
-``click.UsageError`` naming their ROADMAP.md item (``_options``). Reading
-the patch files needs h5py.
+stain-normalized models, object-based classifiers on StarDist's nuclei,
+end2end cell models (CellViT, HoVer-Net: one row per nucleus, the polygons
+into the patch files) and the QuPath pseudo-models, and writes the GeoJSON
+(--geojson) and OME-CSV (--omecsv) exports of those CSVs. The analytics
+(--hplot, --cme-*) and Virchow models raise ``click.UsageError`` naming
+their ROADMAP.md item (``_options``). Reading the patch files needs h5py.
 """
 
 from __future__ import annotations

@@ -6,9 +6,10 @@ config instead of being left unbound, SURVEY.md §2.11).
 
 Counterpart of wsinsight_tpu/cli/patch.py, with the same options. The port
 plans the tissue grid of classifier models, the halo grid of end2end cell
-models and the QuPath pseudo-models' boxes (TSV or GeoJSON detections, or
-the tissue grid for GeoJSON annotations); StarDist models raise
-``click.UsageError`` (``_options``). Writing the patch files needs h5py.
+models (CellViT, HoVer-Net), StarDist's nuclei for object-based models and
+the QuPath pseudo-models' boxes (TSV or GeoJSON detections, or the tissue
+grid for GeoJSON annotations); Virchow models raise ``click.UsageError``
+(``_options``). Writing the patch files needs h5py.
 """
 
 from __future__ import annotations

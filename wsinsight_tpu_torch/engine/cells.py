@@ -1,8 +1,11 @@
-"""Single-cell (object-based end2end) inference: CellViT -> stitcher -> instances.
+"""Single-cell (object-based end2end) inference: CellViT or HoVer-Net ->
+stitcher -> instances.
 
-Counterpart of wsinsight_tpu/engine/cells.py. ``CellEngine`` has the JAX
-engine's surface (``config``, ``n_devices``, ``pad_batch``, ``run_batch``)
-plus ``put`` / ``dispatch`` as in ``ClassifierEngine``. ``stitch_slide``
+Counterpart of wsinsight_tpu/engine/cells.py. The model is built at the
+config's halo (HoVer-Net crops anything past its own 46 px) and patch
+size. ``CellEngine`` has the JAX engine's surface (``config``,
+``n_devices``, ``pad_batch``, ``run_batch``) plus ``put`` / ``dispatch`` as
+in ``ClassifierEngine``. ``stitch_slide``
 drives it over one slide's patch source one batch deep with the stitcher's
 device half::
 
@@ -45,7 +48,7 @@ from .stitch import TileRemapStitcher
 
 
 class CellEngine:
-    """(preprocess -> CellViT forward) step on one device.
+    """(preprocess -> CellViT or HoVer-Net forward) step on one device.
 
     Parity mode (the default) computes in float32 with TF32 off for matmuls
     and cuDNN convolutions; WSINSIGHT_PRECISION="default" allows TF32, set

@@ -2,10 +2,10 @@
 
 Counterpart of wsinsight_tpu/models/__init__.py, with the same aliases.
 Ported: every zoo classifier (the ResNet family, VGG16 / vgg16mod and
-InceptionV4 with and without batch norm) and CellViT (SAM-B/L/H and
-ViT-256). CellViT-Virchow is registered and raises ``NotImplementedError``
-until its encoder is ported (ROADMAP.md Queue 1, item 8); HoVer-Net (item 7)
-and H-Optimus-0 (item 8) raise ``UnknownArchitectureError``.
+InceptionV4 with and without batch norm), CellViT (SAM-B/L/H and ViT-256)
+and HoVer-Net fast. CellViT-Virchow is registered and raises
+``NotImplementedError`` until its encoder is ported (ROADMAP.md Queue 1,
+item 8); H-Optimus-0 (item 8) raises ``UnknownArchitectureError``.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 
 from ..errors import UnknownArchitectureError
 from .cellvit import cellvit_256, cellvit_sam_b, cellvit_sam_h, cellvit_sam_l, cellvit_virchow
+from .hovernet import hovernet_fast
 from .inception_v4 import inception_v4, inception_v4nobn
 from .resnet import preactresnet34, resnet34, resnet50
 from .vgg import vgg16
@@ -42,6 +43,7 @@ _register(cellvit_sam_l, "cellvit_sam_l", "cellvit-sam-l")
 _register(cellvit_sam_b, "cellvit_sam_b", "cellvit-sam-b")
 _register(cellvit_256, "cellvit_256", "cellvit-256")
 _register(cellvit_virchow, "cellvit_virchow", "cellvit-virchow")
+_register(hovernet_fast, "hovernet_fast", "hovernet-fast", "hovernet_fast_pannuke")
 
 
 def available_architectures() -> list[str]:
@@ -56,7 +58,7 @@ def create_model(architecture: str, num_classes: int, dtype: torch.dtype = torch
                  **kwargs):
     """Instantiate the torch module (eval mode) for a zoo architecture name.
     ``kwargs`` go to the constructor (``halo_size`` and ``img_size`` for
-    CellViT)."""
+    the cell models)."""
     key = architecture.lower().replace("-", "_")
     if key not in _REGISTRY:
         raise UnknownArchitectureError(

@@ -17,6 +17,12 @@ torchvision's names, so a torch checkpoint loads as it is.
 Conv against transposed conv is read off the port model's own module types
 when the model is given: a name cannot tell them apart, and with in == out
 their shapes cannot either.
+
+Also here: ``normalize_hovernet_keys`` (released hover_net spellings onto
+``models/hovernet.py``'s names), ``convert_stardist_keras_h5`` (the released
+StarDist Keras weights file, read with h5py, into ``models/stardist.py``'s
+state dict) and ``save_flax_msgpack``, the writer of the flax msgpack format
+that ``load_flax_msgpack`` reads, without flax.
 """
 
 from __future__ import annotations
@@ -130,6 +136,143 @@ def load_flax_msgpack(path: str | os.PathLike) -> dict:
 
     with open(path, "rb") as fh:
         return unchunk(msgpack.unpackb(fh.read(), ext_hook=ext_hook, raw=False))
+
+
+def normalize_hovernet_keys(sd: Mapping[str, Any]) -> dict[str, Any]:
+    """Rewrite released hover_net state-dict spellings onto the port's names.
+
+    Upstream net_desc.py names submodules with '/' inside its OrderedDict
+    Sequentials (the stem conv is literally named '/': 'conv0./.weight';
+    batch norms are 'preact/bn', 'conv1/bn', 'conv2/bn', 'preact_bna/bn'),
+    and UpSample2x registers a constant 'unpool_mat' buffer. This maps
+    'conv0./.' -> 'conv0.conv.', '<x>/bn.' -> '<x>_bn.' and drops the buffer.
+    Idempotent on dicts already normalized (TorchScript re-exports may
+    sanitize names upstream)."""
+    out: dict[str, Any] = {}
+    for k, v in sd.items():
+        if k.endswith("unpool_mat"):
+            continue
+        k = k.replace("conv0./.", "conv0.conv.")
+        k = k.replace("/bn.", "_bn.")
+        out[k] = v
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Keras HDF5 -> the port's StarDist (2D_versatile_he), no TensorFlow needed
+# ---------------------------------------------------------------------------
+
+
+def _keras_h5_weights(path: str | os.PathLike) -> list[tuple[str, dict[str, np.ndarray]]]:
+    """Parse a Keras ``save_weights`` HDF5 file into ordered
+    (layer_name, {leaf: array}) pairs, skipping weightless layers.
+
+    The format: root attr ``layer_names`` lists layers in graph order; each
+    layer group's ``weight_names`` attr lists datasets like
+    ``<layer>/kernel:0``."""
+    try:
+        import h5py
+    except ImportError as err:
+        raise ImportError(
+            f"reading the Keras weights file {path} needs h5py, which is not installed;"
+            " convert it where h5py is, to stardist_2D_versatile_he.msgpack"
+            " (save_flax_msgpack), and place that file instead"
+        ) from err
+
+    def _names(attr) -> list[str]:
+        return [n.decode() if isinstance(n, bytes) else str(n) for n in attr]
+
+    out: list[tuple[str, dict[str, np.ndarray]]] = []
+    with h5py.File(path, "r") as f:
+        root = f["model_weights"] if "model_weights" in f else f
+        for layer in _names(root.attrs["layer_names"]):
+            group = root[layer]
+            leaves: dict[str, np.ndarray] = {}
+            for wname in _names(group.attrs.get("weight_names", [])):
+                leaf = wname.rsplit("/", 1)[-1].split(":", 1)[0]  # kernel:0 -> kernel
+                leaves[leaf] = np.asarray(group[wname])
+            if leaves:
+                out.append((layer, leaves))
+    return out
+
+
+# Layers of the released 2D_versatile_he graph that carry their own names
+# (stardist's model2d names the unet_block convs and the heads; the two
+# grid-stem convs are anonymous Conv2D layers).
+_STARDIST_HE_NAMED = frozenset(
+    [f"down_level_{n}_no_{i}" for n in range(3) for i in range(2)]
+    + [f"up_level_{n}_no_{i}" for n in range(3) for i in range(2)]
+    + ["middle_0", "middle_1", "features", "prob", "dist"]
+)
+_STARDIST_STEM_SHAPES = [(3, 3, 3, 32), (3, 3, 32, 32)]
+
+
+def convert_stardist_keras_h5(path: str | os.PathLike) -> dict[str, torch.Tensor]:
+    """The released StarDist ``2D_versatile_he`` Keras weights file as the
+    state dict of the port's ``models.stardist.StarDistUNet``.
+
+    Keras Conv2D kernels are (kh, kw, in, out), flax's layout, so the layers
+    form a flax param tree that ``flax_params_to_state_dict`` carries across;
+    named layers map by name, and the two anonymous grid-stem convs by their
+    position, checked by shape."""
+    params: dict[str, dict[str, np.ndarray]] = {}
+    stem: list[tuple[str, dict[str, np.ndarray]]] = []
+    unexpected: list[str] = []
+    for layer, leaves in _keras_h5_weights(path):
+        if layer in _STARDIST_HE_NAMED:
+            params[layer] = {
+                "kernel": np.asarray(leaves["kernel"], np.float32),
+                "bias": np.asarray(leaves["bias"], np.float32),
+            }
+        elif "kernel" in leaves and np.ndim(leaves["kernel"]) == 4:
+            stem.append((layer, leaves))
+        else:
+            unexpected.append(layer)
+    if unexpected:
+        raise ValueError(f"unrecognized weighted layers in {path}: {unexpected}")
+    if len(stem) != len(_STARDIST_STEM_SHAPES):
+        raise ValueError(
+            f"expected {len(_STARDIST_STEM_SHAPES)} anonymous grid-stem convs,"
+            f" found {len(stem)}: {[n for n, _ in stem]}"
+        )
+    for i, ((layer, leaves), want) in enumerate(zip(stem, _STARDIST_STEM_SHAPES)):
+        got = tuple(leaves["kernel"].shape)
+        if got != want:
+            raise ValueError(f"stem conv {layer}: kernel shape {got}, expected {want}")
+        params[f"stem_conv_{i}"] = {
+            "kernel": np.asarray(leaves["kernel"], np.float32),
+            "bias": np.asarray(leaves["bias"], np.float32),
+        }
+
+    missing = _STARDIST_HE_NAMED - params.keys()
+    if missing:
+        raise ValueError(f"layers missing from {path}: {sorted(missing)}")
+    return flax_params_to_state_dict(params)
+
+
+def save_flax_msgpack(params: Mapping[str, Any], path: str | os.PathLike) -> str:
+    """Write a nested dict of arrays in flax's msgpack checkpoint format (what
+    ``flax.serialization.msgpack_serialize`` writes, and ``load_flax_msgpack``
+    and the JAX package read), without flax: keys sorted as flax sorts them,
+    so the bytes are flax's for arrays under flax's 1 GiB chunk size. Returns
+    the file's sha256."""
+    import msgpack
+
+    def ext(x):
+        if isinstance(x, np.ndarray):  # flax's ndarray extension: (shape, dtype, bytes)
+            data = msgpack.packb((x.shape, x.dtype.name, x.tobytes("C")), use_bin_type=True)
+            return msgpack.ExtType(1, data)
+        return x
+
+    def tree(node):
+        if hasattr(node, "items"):
+            return {str(k): tree(v) for k, v in sorted(node.items())}
+        return np.asarray(node.detach().cpu() if isinstance(node, torch.Tensor) else node)
+
+    data = msgpack.packb(tree(params), default=ext, strict_types=True)
+    with open(path, "wb") as fh:
+        fh.write(data)
+    return hashlib.sha256(data).hexdigest()
 
 
 def sha256_file(path: str | os.PathLike) -> str:

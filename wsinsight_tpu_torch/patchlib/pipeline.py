@@ -14,8 +14,8 @@ slide with the very code the CLI runs. The five modes:
 4. StarDist pre-detection (reference: :299-355)
 5. default tissue grid with per-tile polygons + tile_dim (reference: :357-402)
 
-The port has modes 1, 2, 3 and 5; mode 4 raises ``NotImplementedError``
-naming the ROADMAP.md item it waits for (StarDist, Queue 1 item 7).
+The port has all five; mode 4 runs the port's StarDist
+(``models/stardist.py``) on the card unless the CPU is asked for.
 
 Also fixes a latent reference defect: the patch stage writes
 ``results_dir/wsi_list.csv``, which downstream QuPath pseudo-model branches
@@ -35,13 +35,14 @@ import numpy.typing as npt
 import pandas as pd
 from PIL import Image
 
-from ..errors import not_ported
 from ..geometry import polygon_centroid
 from ..uri_path import URIPath
+from ..utils.profiling import hot_stage
 from ..wsi import _validate_wsi_directory, get_avg_mpp, get_wsi_cls
 from .io import draw_contours_on_thumbnail, extract_patches_from_slide, save_hdf5
 from .patch import (
     get_multipolygon_from_binary_arr,
+    get_object_coordinates_within_polygon,
     get_patch_coordinates_within_polygon,
 )
 from .segment import segment_tissue
@@ -192,9 +193,40 @@ def _plan_halo_grid(ctx: _SlideContext) -> Optional[PatchPlan]:
 
 
 def _plan_stardist(ctx: _SlideContext) -> Optional[PatchPlan]:
-    """Mode 4: StarDist nucleus pre-detection (JAX package:
-    patchlib/pipeline.py:188-221)."""
-    raise NotImplementedError(not_ported("StarDist pre-detection", 7))
+    """Mode 4: StarDist nucleus pre-detection over the whole image
+    (reference: :299-355), served by the port's StarDist
+    (``models/stardist.py``, on the card unless the CPU is asked for)."""
+    from ..models.stardist import predict_nuclei_big
+
+    slide = ctx.slide
+    # read_region_array is TpuSlide-only; foreign backends return PIL
+    # (same capability probe as patchlib/io.py and engine/data.py).
+    grab = getattr(slide, "read_region_array", None)
+    with hot_stage("stardist.read"):
+        if grab is not None:
+            image = grab((0, 0), 0, slide.dimensions)
+        else:
+            image = np.asarray(slide.read_region((0, 0), 0, slide.dimensions))[:, :, :3]
+
+    nuclei = predict_nuclei_big(
+        image,
+        pmin=ctx.opts["stardist_normalization_pmin"],
+        pmax=ctx.opts["stardist_normalization_pmax"],
+    )
+    centroids = np.zeros((len(nuclei), 2), dtype=np.int32)
+    rings: list[np.ndarray] = []
+    for n, outline in enumerate(nuclei):
+        if len(outline) and not np.allclose(outline[0], outline[-1]):
+            outline = np.vstack([outline, outline[:1]])
+        rings.append(outline.astype(np.float32))
+        centroids[n] = np.rint(polygon_centroid(outline.astype(np.float64)))
+
+    coords = get_object_coordinates_within_polygon(
+        object_centroids_arr=centroids,
+        half_patch_size=int(round(ctx.patch_size / 2)),
+        polygon=ctx.polygon,
+    )
+    return PatchPlan(coords, polygons=rings, patch_size=ctx.patch_size)
 
 
 def _plan_tissue_grid(ctx: _SlideContext) -> Optional[PatchPlan]:

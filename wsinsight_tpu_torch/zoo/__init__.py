@@ -144,7 +144,12 @@ class ModelHandle:
         path = self._resolve_weights()
         if path.suffix in (".msgpack", ".flax"):
             return flax_params_to_state_dict(load_flax_msgpack(path), model)
-        return load_torch_weights(path)
+        sd = load_torch_weights(path)
+        if self.config.architecture.lower().replace("-", "_").startswith("hovernet"):
+            from ..models.convert import normalize_hovernet_keys
+
+            sd = normalize_hovernet_keys(sd)  # released spellings: 'conv0./.', '<x>/bn.'
+        return sd
 
     def _resolve_weights(self) -> Path:
         if self.weights_path:
@@ -244,20 +249,29 @@ def _init_normal(p: torch.Tensor, gen: torch.Generator, std: float) -> None:
 
 
 def randomize_cell_model(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
-    """Seeded random weights for a CellViT, in place, on the CPU.
+    """Seeded random weights for a cell model (CellViT, HoVer-Net), in place,
+    on the CPU.
 
-    Convolutions are normal with variance 2/fan-in, transposed convolutions
-    1/in-channels, linear layers 1/fan-in; biases N(0, 0.1^2), so a padded
+    Convolutions are normal with variance 2/fan-in (HoVer-Net's 1/fan-in:
+    its residual sums, without working batch norm, grow with each unit's
+    variance, and He's 2 takes its decoders' features to the hundreds),
+    transposed convolutions 1/in-channels, linear layers 1/fan-in;
+    biases N(0, 0.1^2), so a padded
     window's bias-filled tokens differ from zeros; pos_embed and cls_token
     N(0, 0.02^2) (flax's init) and the rel-pos tables N(0, 0.1^2), so rel-pos
     moves the scores; layer and batch norms keep their identity. Then each
-    decoder branch's last conv is scaled to give unit-scale maps on a seeded
-    noise batch, run in float32 whatever the model's compute dtype: logits
-    that do not saturate keep the model's numerics visible in comparisons.
-    The same seed gives the same weights on every host."""
+    decoder branch's last conv (CellViT's ``decoder0_header[2]``, HoVer-Net's
+    ``decoder.{np,hv,tp}.u0.conv``) is scaled to give unit-scale maps on a
+    seeded noise batch, run in float32 whatever the model's compute dtype:
+    logits that do not saturate keep the model's numerics visible in
+    comparisons. CellViT's probe takes the whole maps (halo 0); HoVer-Net's
+    runs at the model's own halo, the least it has. The same seed gives the
+    same weights on every host."""
     from ..models.layers import EvalBN
 
     gen = torch.Generator().manual_seed(seed)
+    cellvit = hasattr(model, "nuclei_binary_map_decoder")
+    conv_gain = 2.0 if cellvit else 1.0
     with torch.no_grad():
         for name, p in model.named_parameters():
             mod_name, _, leaf = name.rpartition(".")
@@ -269,20 +283,26 @@ def randomize_cell_model(model: torch.nn.Module, seed: int = 0) -> torch.nn.Modu
             elif isinstance(mod, torch.nn.ConvTranspose2d):
                 _init_normal(p, gen, (1.0 / p.shape[0]) ** 0.5)
             elif leaf == "weight":
-                gain = 2.0 if p.dim() == 4 else 1.0
+                gain = conv_gain if p.dim() == 4 else 1.0
                 _init_normal(p, gen, (gain / p[0].numel()) ** 0.5)
             else:  # pos_embed, cls_token, rel_pos_h / rel_pos_w
                 _init_normal(p, gen, 0.1 if leaf.startswith("rel_pos") else 0.02)
-        heads = {
-            "nuclei_binary_map": model.nuclei_binary_map_decoder.decoder0_header[2],
-            "hv_map": model.hv_map_decoder.decoder0_header[2],
-            "nuclei_type_map": model.nuclei_type_maps_decoder.decoder0_header[2],
-        }
+        if cellvit:
+            heads = {
+                "nuclei_binary_map": model.nuclei_binary_map_decoder.decoder0_header[2],
+                "hv_map": model.hv_map_decoder.decoder0_header[2],
+                "nuclei_type_map": model.nuclei_type_maps_decoder.decoder0_header[2],
+            }
+            probe_halo = 0  # whole maps
+        else:  # HoVer-Net: it refuses halos under its own
+            heads = {key: model.decoder[branch].u0.conv for key, branch in (
+                ("nuclei_binary_map", "np"), ("hv_map", "hv"), ("nuclei_type_map", "tp"))}
+            probe_halo = model.halo_size
         for head in heads.values():
             head.bias.zero_()
         probe = torch.randn((2, model.img_size, model.img_size, 3), generator=gen)
         saved = model.dtype, model.halo_size
-        model.dtype, model.halo_size = torch.float32, 0  # whole maps, in float32
+        model.dtype, model.halo_size = torch.float32, probe_halo
         try:
             out = model(probe)
         finally:
@@ -315,9 +335,9 @@ def make_random_local_model(
     unit-scale logits on a seeded noise batch: probabilities that are not
     saturated keep the model's numerics visible in comparisons.
 
-    Cell architectures take the JAX package's cell config (256 px unless
-    given, halo 46, ToTensor + Normalize 0.5/0.5, ``end2end`` detection) and
-    ``randomize_cell_model``'s weights.
+    Cell architectures (CellViT, HoVer-Net) take the JAX package's cell
+    config (256 px unless given, halo 46, ToTensor + Normalize 0.5/0.5,
+    ``end2end`` detection) and ``randomize_cell_model``'s weights.
     """
     from ..models import create_model, is_cell_architecture
 
