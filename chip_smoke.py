@@ -10,9 +10,12 @@ other classifiers (VGG16, InceptionV4 with and without batch norm), and the
 cell path with CellViT-SAM-H-x40 (ViT-H, 32 blocks, windowed and global
 rel-pos attention; also over a whole slide to its nuclei), CellViT-256-x40
 (ViT-S/16 with a cls token) and hovernet_fast_pannuke (HoVer-Net fast);
-then StarDist's object-based patch stage and a classifier on its nuclei. Holds
-every hand-written kernel against its plain torch version. Phases; any
-failure exits non-zero and prints no result line:
+then StarDist's object-based patch stage and a classifier on its nuclei;
+CellViT-Virchow-x40-AMP (Virchow's DINOv2 ViT-H/14); and the analytics
+(H-Plot, CME with its DGI training and the Leiden sweep, the H-Optimus-0
+foundation branch). Holds every hand-written kernel against its plain
+torch version. Phases; any failure exits non-zero and prints no result
+line:
 
   (a) the card's name and power limit; no CUDA -> exit 1;
   (b) build every kernel from the checkout's sources (one nvcc per source),
@@ -38,8 +41,9 @@ failure exits non-zero and prints no result line:
       card, f32 and bf16, on the real rows, at B=32 at the three shapes the
       cell path gives it (SAM-H windowed with its real 16x16 extent,
       valid=(16, 16), as the model launches it, and in f32 also at every
-      row; SAM-H global; ViT-256's 257-token row), and in bf16 at SAM-B's
-      1024 px global block (B=1, n=4096); its time beside its bound (real
+      row; SAM-H global; ViT-256's 257-token row; CellViT-Virchow's 325-token
+      row, hd 80; H-Optimus' 261-token row, hd 64, at its B=64), and in bf16
+      at SAM-B's 1024 px global block (B=1, n=4096); its time beside its bound (real
       rows only), its plain version and scaled_dot_product_attention with
       the rel-pos bias as attn_mask (every row: the call the model would
       make instead);
@@ -182,6 +186,40 @@ failure exits non-zero and prints no result line:
       and K1 and K2 launches 0 (Scale takes the torch preprocess). (o) and
       (p) run after (l); the record's kernels name them as paths that launch
       neither kernel.
+  (q) CellViT-Virchow-x40-AMP as the registry holds it (ViT-H/14: 1280 wide,
+      32 blocks, 16 heads, SwiGLU, LayerScale, the native 16x16 pos-embed
+      resampled to 18x18; 256 px, halo 46), seeded (init_random: LayerScale
+      gains U[0.1, 1]): as (g), 8 resident batches of B=32 in parity and
+      bf16 (patches/s, forward device ms, K2 launches, 32 per batch, and its
+      profiler share, peak memory) with (i)'s checks (card vs CPU <= 1e-3,
+      bf16 NP decisions >= 99%, maps finite); then (l)'s slide through it in
+      bf16: plan_slide (halo grid) -> stitch_slide -> finalize -> the CSV,
+      with (l)'s checks (K2 32 per batch, K1 0, lists aligned, polygons in
+      their boxes, one CSV row per instance). (f) holds K2 at its shape.
+  (r) the analytics over (l)'s drawn nuclei (seeded PanNuke types around
+      tumour nests, written in the cell CSV schema) and a second table of
+      110,000 nuclei (above train_dgi_multi's 16,384-node cap, so the
+      subgraph sampler runs) on a 256 px slide that carries the mpp:
+      hplot_generation over both (host), cme_generation over both (cellular,
+      300 DGI epochs on the card, the Leiden sweep with its kNN graph and
+      silhouettes on the card): seconds of the graph build, the DGI (epochs/s),
+      the full-graph embedding and the sweep (the library's hot_stage
+      timers); then cme_generation, cellular and annotation, over a
+      20,000-nucleus window of the large table (also above the cap): the
+      Voronoi merge's seconds (the whole table's, host Python at under 1,000
+      cells/s, would take minutes); one DGI step's loss on the
+      card vs the CPU (<= 1e-4 relative); then H-Optimus-0 at full width and
+      depth (ViT-g/14: 1536 wide, 40 blocks, 24 heads, 4 registers; seeded
+      by zoo.randomize_weights, LayerScale gains U[0.1, 1]), card vs CPU on
+      2 crops (<= 1e-3), and
+      cme_generation(use_hoptimus=True) on (l)'s slide in bf16 over
+      SlideCropSource's 224 px crops, cellular and annotation: crops/s on
+      the card and over the whole foundation block, K2 launches (40 per
+      batch of 64), the Voronoi merge's seconds; checks: the CME CSVs hold
+      every cell once, the kept ones with one-hot cme_* columns, the regions
+      WKT polygons, the H-Plot layer tables finite and its metrics finite
+      but for the enrichment indices the JAX package leaves undefined,
+      K1 launches 0.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}, printed exactly when every phase passed, and
@@ -224,10 +262,11 @@ CARD_RATES = {
     "H100 NVL": (3.9e12, 60e12, 835e12, 417.5e12),
     "H200": (4.8e12, 67e12, 989e12, 494.7e12),
 }
-# K2 at the cell path's shapes, B=32 in both dtypes, and SAM-B's global block
-# at 1024 px (n=4096, 64 key tiles) at B=1 in bf16: (name, qkv grid HP x WP,
-# dim, heads, window, rel-pos, B, dtypes, valid). SAM-H's windowed blocks
-# run on its 16x16 grid padded to 28x28.
+# K2 at the cell path's shapes, B=32 in both dtypes, SAM-B's global block at
+# 1024 px (n=4096, 64 key tiles) at B=1 in bf16, and the analytics' H-Optimus
+# at its batch of 64: (name, qkv grid HP x WP, dim, heads, window, rel-pos, B,
+# dtypes, valid). SAM-H's windowed blocks run on its 16x16 grid padded to
+# 28x28.
 K2_SHAPES = (
     ("sam_h_windowed", (28, 28), 1280, 16, 14, True, CELL_BATCH, ("float32", "bfloat16"),
      (16, 16)),
@@ -235,6 +274,10 @@ K2_SHAPES = (
     ("sam_h_global", (16, 16), 1280, 16, 0, True, CELL_BATCH, ("float32", "bfloat16"), None),
     ("vit_256", (1, 257), 384, 6, 0, False, CELL_BATCH, ("float32", "bfloat16"), None),
     ("sam_b_1024_global", (64, 64), 768, 12, 0, True, 1, ("bfloat16",), None),
+    # (q)'s CellViT-Virchow at 256 px: cls + 18x18 tokens, hd 80; (r)'s
+    # H-Optimus-0 at 224 px: cls + 4 registers + 16x16 tokens, hd 64
+    ("virchow", (1, 325), 1280, 16, 0, False, CELL_BATCH, ("float32", "bfloat16"), None),
+    ("hoptimus", (1, 261), 1536, 24, 0, False, 64, ("float32", "bfloat16"), None),
 )
 # f32: the same sums in another order. bf16: JAX's bar for its bf16 kernel
 # (tests/test_flash_attn.py, 5e-2): the rel values are rounded to bf16 after
@@ -971,10 +1014,7 @@ def cell_slide_phase(check, kernels, card, rng, engines, cell_slide) -> dict:
     the Python one and the ridge on the card against the cv2 path, on the
     parity canvases and on the drawn nuclei's own maps. ``cell_slide`` is
     write_nuclei_slide's (path, tissue share, nuclei, seconds)."""
-    import pandas as pd
-
     from wsinsight_tpu_torch.cli.infer import default_infer_workers, default_stitch_workers
-    from wsinsight_tpu_torch.engine.runner import write_slide_csv
     from wsinsight_tpu_torch.ops.watershed import _watershed_python, watershed
     from wsinsight_tpu_torch.patchlib import plan_slide
     from wsinsight_tpu_torch.uri_path import URIPath
@@ -1006,7 +1046,6 @@ def cell_slide_phase(check, kernels, card, rng, engines, cell_slide) -> dict:
           f" finalize {stitch_workers} worker(s) (the CLI's defaults)")
     check(step == ps - 2 * cfg.halo_size_pixels, f"(l) the halo grid's step {step} (patch - 2 x"
           f" halo = {ps - 2 * cfg.halo_size_pixels})")
-    header = ",".join(["minx", "miny", "width", "height"] + [f"prob_{c}" for c in cfg.class_names])
     stats = {"side": side, "tissue": tissue, "nuclei_drawn": len(nuclei[0]), "write_s": secs,
              "plan_s": plan_s, "patches": n, "card": card}
     results, stitchers = {}, {}
@@ -1038,26 +1077,7 @@ def cell_slide_phase(check, kernels, card, rng, engines, cell_slide) -> dict:
         check(k2 == 32 * run["batches"] and run["batches"] == n_batches,
               f"(l) {mode}: K2 launches {k2} (32 per batch x {run['batches']} batches)")
         check(run["launches"]["fused_preprocess"] == 0, f"(l) {mode}: K1 launches 0")
-        boxes, probs, polys = out
-        check(len(boxes) == len(probs) == len(polys), f"(l) {mode}: boxes, probabilities and"
-              f" polygons aligned ({len(boxes)}, {len(probs)}, {len(polys)})")
-        inside = all(len(r) >= 3 and (r.min(0) >= b[0, :2]).all()
-                     and (r.max(0) <= b[0, :2] + b[0, 2:] - 1).all() for b, r in zip(boxes, polys))
-        check(inside, f"(l) {mode}: every polygon (>= 3 vertices) lies inside its bbox")
-        csv = URIPath(f"{tmp.name}/{mode}.csv")
-        k = cfg.num_classes
-        coords_arr = np.concatenate(boxes) if boxes else np.zeros((0, 4), np.int32)
-        probs_arr = np.concatenate(probs) if probs else np.zeros((0, k), np.float32)
-        write_slide_csv(csv, coords_arr, probs_arr, cfg.class_names)
-        with open(str(csv)) as fh:
-            first = fh.readline().strip()
-        df = pd.read_csv(str(csv))
-        p = df[[f"prob_{c}" for c in cfg.class_names]].to_numpy(dtype=np.float64)
-        dsum = float(np.abs(p.sum(axis=1) - 1.0).max()) if len(p) else 0.0
-        check(first == header and len(df) == len(boxes) and bool(np.isfinite(p).all())
-              and dsum <= k * 0.5 / 255 + 1e-6,
-              f"(l) {mode}: the CSV has one row per instance ({len(df)}) under {header}, rows"
-              f" finite, summing to 1 within {dsum:.3g} (<= K x 1/2 level, quantized transfer)")
+        slide_csv_checks(check, f"(l) {mode}", engine, out, f"{tmp.name}/{mode}.csv")
         stitchers[mode] = st
         print(f"    {_smi('clocks.sm,power.draw,temperature.gpu')} (SM clock, power, temperature)")
     stitchers["bf16"].close()
@@ -2092,6 +2112,506 @@ def stardist_phase(check, kernels, card, cell_slide) -> dict:
     return stats
 
 
+# (q): CellViT-Virchow-x40-AMP as the registry holds it (ViT-H/14 with SwiGLU
+# and LayerScale, 256 px, halo 46), seeded (randomize_cell_model: LayerScale
+# gains U[0.1, 1]).
+VIRCHOW_MODEL = "CellViT-Virchow-x40-AMP"
+# (r): the analytics. PanNuke's classes (the cell models' class names), the
+# second cell table's size (above train_dgi_multi's max_nodes_cap of 16,384,
+# so its subgraph sampler runs: a biopsy at 40x holds 1e5-1e6 cells) and
+# H-Optimus' batch (the JAX package's extractor batch).
+PANNUKE = ("Background", "Neoplastic", "Inflammatory", "Connective", "Dead", "Epithelial")
+BIG_CELLS = 110_000
+WINDOW_CELLS = 20_000  # the annotation merge's share of it: above the cap too
+HOPTIMUS_BATCH = 64
+CME_EPOCHS = 300  # the CLI's default
+CME_RESOLUTIONS = "0.25,0.5,1.0,2.0"  # the CLI's default
+
+
+def slide_csv_checks(check, what, engine, out, csv_path) -> None:
+    """(l)'s and (q)'s checks on a cell slide's output: the lists aligned,
+    every polygon inside its bbox, the CSV through write_slide_csv one row
+    per instance under the model's header, finite, rows summing to 1 within
+    K/2 levels (quantized transfer)."""
+    import pandas as pd
+
+    from wsinsight_tpu_torch.engine.runner import write_slide_csv
+    from wsinsight_tpu_torch.uri_path import URIPath
+
+    cfg = engine.config
+    boxes, probs, polys = out
+    inside = all(len(r) >= 3 and (r.min(0) >= b[0, :2]).all()
+                 and (r.max(0) <= b[0, :2] + b[0, 2:] - 1).all() for b, r in zip(boxes, polys))
+    check(len(boxes) == len(probs) == len(polys) and inside,
+          f"{what}: boxes, probabilities and polygons aligned ({len(boxes)}, {len(probs)},"
+          f" {len(polys)}), every polygon (>= 3 vertices) inside its bbox")
+    k = cfg.num_classes
+    coords_arr = np.concatenate(boxes) if boxes else np.zeros((0, 4), np.int32)
+    probs_arr = np.concatenate(probs) if probs else np.zeros((0, k), np.float32)
+    write_slide_csv(URIPath(csv_path), coords_arr, probs_arr, cfg.class_names)
+    header = ",".join(["minx", "miny", "width", "height"] + [f"prob_{c}" for c in cfg.class_names])
+    with open(csv_path) as fh:
+        first = fh.readline().strip()
+    df = pd.read_csv(csv_path)
+    p = df[[f"prob_{c}" for c in cfg.class_names]].to_numpy(dtype=np.float64)
+    dsum = float(np.abs(p.sum(axis=1) - 1.0).max()) if len(p) else 0.0
+    check(first == header and len(df) == len(boxes) and bool(np.isfinite(p).all())
+          and dsum <= k * 0.5 / 255 + 1e-6,
+          f"{what}: the CSV has one row per instance ({len(df)}) under {header}, rows finite,"
+          f" summing to 1 within {dsum:.3g} (<= K x 1/2 level, quantized transfer)")
+
+
+def virchow_phase(check, kernels, card, rng, dev, cell_slide) -> dict:
+    """(q): CellViT-Virchow-x40-AMP resident in parity and bf16 (as (g)),
+    then (l)'s slide through it in bf16: plan_slide (halo grid) ->
+    stitch_slide -> finalize -> the CSV."""
+    import torch
+
+    from wsinsight_tpu_torch.cli.infer import default_infer_workers, default_stitch_workers
+    from wsinsight_tpu_torch.patchlib import plan_slide
+    from wsinsight_tpu_torch.uri_path import URIPath
+    from wsinsight_tpu_torch.utils.workers import governed_workers
+
+    t0 = time.perf_counter()
+    resident, engines = resident_cell_phase(check, kernels, rng, dev, "q", "q", VIRCHOW_MODEL, 32)
+    engine = engines[True]
+    del engines[False]
+    torch.cuda.empty_cache()
+    path = cell_slide[0]
+    cfg = engine.config
+    plan, ctx, *_ = plan_slide(URIPath(path), None, None, None, cfg.patch_size_pixels,
+                               cfg.spacing_um_px, cfg.halo_size_pixels, object_based=True,
+                               object_detection="end2end")  # the CLI's defaults
+    dims = ctx.slide.dimensions
+    ctx.slide.close()
+    workers = governed_workers(default_infer_workers())
+    stitch_workers = default_stitch_workers()
+    n_batches = -(-len(plan.coords) // CELL_BATCH)
+    st, out, run = run_cell_slide(engine, kernels, path, plan.coords, plan.patch_size, dims,
+                                  workers, stitch_workers)
+    host = run["host_shares"]
+    print(f"    (l)'s slide in bf16, {run['patches']} patches ({n_batches} batches of"
+          f" B={CELL_BATCH}): {run['patches_s']:.1f} patches/s without the finalize"
+          f" ({run['wall_s']:.2f} s), {run['patches_s_with_finalize']:.1f} with it; device busy"
+          f" {run['busy']:.1%}; main thread: decode wait {host['decode_wait']:.1%}, put"
+          f" {host['put']:.1%}, dispatch {host['dispatch']:.1%}, scatter {host['scatter']:.1%};"
+          f" finalize {run['finalize_s']:.2f} s; foreground {run['foreground']:.2%},"
+          f" {run['instances']} instances; peak {run['peak_gib']:.2f} GiB; {card}")
+    k2 = run["launches"]["window_attention"]
+    check(k2 == 32 * run["batches"] and run["batches"] == n_batches,
+          f"(q) slide: K2 launches {k2} (32 per batch x {run['batches']} batches)")
+    check(run["launches"]["fused_preprocess"] == 0, "(q) slide: K1 launches 0")
+    tmp = tempfile.TemporaryDirectory()
+    slide_csv_checks(check, "(q) slide", engine, out, f"{tmp.name}/virchow.csv")
+    st.close()
+    tmp.cleanup()
+    del engine, engines
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"    (q) took {secs:.1f} s; {_smi('clocks.sm,power.draw,temperature.gpu')}"
+          " (SM clock, power, temperature)")
+    launches = run["launches"]["window_attention"] + sum(
+        st["launches"]["window_attention"] for st in resident.values())
+    return {"resident": resident, "slide": run, "k2_launches": launches, "seconds": secs}
+
+
+def typed_cells(centres, radii, nests, rng) -> "pd.DataFrame":
+    """A cell table in the cell path's CSV schema (minx, miny, width, height,
+    prob_<PanNuke class>) with seeded types: Neoplastic inside the tumour
+    nests (centre x, y, radius), Inflammatory in a band 1.5 radii wide
+    around them, Connective, Dead or Epithelial elsewhere; the type's
+    probability 0.55-0.9, the rest spread over the other classes."""
+    import pandas as pd
+
+    n = len(centres)
+    d = np.full(n, np.inf)
+    for x, y, r in nests:
+        d = np.minimum(d, np.hypot(centres[:, 0] - x, centres[:, 1] - y) / r)
+    kind = np.where(d < 1.0, 1, np.where(d < 1.5, 2, rng.choice([3, 4, 5], n, p=[0.6, 0.1, 0.3])))
+    rest = rng.dirichlet(np.ones(len(PANNUKE)), n)
+    top = rng.uniform(0.55, 0.9, n)
+    probs = rest * (1 - top)[:, None]
+    probs[np.arange(n), kind] += top
+    half = radii.max(axis=1)
+    df = pd.DataFrame({"minx": centres[:, 0] - half, "miny": centres[:, 1] - half,
+                       "width": 2 * half + 1, "height": 2 * half + 1})
+    for i, c in enumerate(PANNUKE):
+        df[f"prob_{c}"] = probs[:, i].astype(np.float32)
+    return df
+
+
+def cme_outputs_check(check, tag, results, stems) -> dict:
+    """The CME CSVs: each slide's cell CSV holds every input cell once, the
+    kept cells (the run's slide graph) with one-hot cme_* columns and the
+    others none; for the slides in ``stems`` (run with the annotation
+    merge) the region CSV, WKT polygons with areas."""
+    import pickle
+
+    import pandas as pd
+
+    with open(f"{results}/slide-graphs.joblib", "rb") as fh:
+        graphs = pickle.load(fh)
+    out = {}
+    for stem, slide in zip(graphs["stems"], graphs["slides"]):
+        cells = pd.read_csv(f"{results}/cme-outputs-csv/cells/{stem}.csv")
+        source = pd.read_csv(f"{results}/model-outputs-csv/{stem}.csv")
+        cols = [c for c in cells.columns if c.startswith("cme_")]
+        oh = cells[cols].to_numpy()
+        kept = np.zeros(len(cells), bool)
+        kept[slide["kept_idx"]] = True
+        one_hot = bool(np.isin(oh[kept], (0.0, 1.0)).all()) and bool(
+            (oh[kept].sum(1) == 1).all())
+        check(len(cells) == len(source) and one_hot and bool(np.isnan(oh[~kept]).all()),
+              f"({tag}) {stem}: the cell CSV holds its {len(source)} cells once, the"
+              f" {int(kept.sum())} kept ones with one-hot {cols[0]}..{cols[-1]}, the"
+              f" {int((~kept).sum())} isolated ones none")
+        out[stem] = {"cells": len(source), "kept": int(kept.sum()), "cmes": len(cols),
+                     "cme_sizes": np.bincount(oh[kept].argmax(1), minlength=len(cols)).tolist()}
+        region = f"{results}/cme-outputs-csv/cmes/{stem}.csv"
+        if stem in stems:
+            reg = pd.read_csv(region) if os.path.exists(region) else pd.DataFrame(
+                {"polygon_wkt": [], "area": []})
+            check(len(reg) > 0 and reg["polygon_wkt"].str.startswith("POLYGON").all()
+                  and bool((reg["area"] > 0).all()),
+                  f"({tag}) {stem}: {len(reg)} CME regions, WKT polygons with positive areas")
+            out[stem]["regions"] = len(reg)
+    return out
+
+
+def analytics_phase(check, kernels, card, rng, dev, cell_slide) -> dict:
+    """(r): the analytics over (l)'s nuclei and a second cell table of
+    BIG_CELLS nuclei: hplot_generation and cme_generation (the Leiden sweep,
+    CME_EPOCHS of DGI on the card), then cme_generation with the H-Optimus
+    branch (the port's FoundationViT on the card over SlideCropSource
+    crops of (l)'s slide)."""
+    import pandas as pd
+    import torch
+
+    import wsinsight_tpu_torch.insightlib.foundation as foundation_mod
+    from wsinsight_tpu_torch.insightlib import cme_generation, hplot_generation
+    from wsinsight_tpu_torch.insightlib.foundation import vit_hoptimus_extractor
+    from wsinsight_tpu_torch.insightlib.gnn import DGI, make_dgi_train_step, pad_graph
+    from wsinsight_tpu_torch.models.vit import HOPTIMUS_VIT_G, FoundationViT
+    from wsinsight_tpu_torch.uri_path import URIPath
+    from wsinsight_tpu_torch.utils.profiling import hot_stage_report
+    from wsinsight_tpu_torch.wsi import get_wsi_cls
+    from wsinsight_tpu_torch.wsi.tiff import write_pyramidal_tiff
+    from wsinsight_tpu_torch.zoo import randomize_weights
+
+    def stages() -> dict:  # cme_generation's phases, as the library times them
+        return {k.split(".", 1)[1]: v for k, v in hot_stage_report().items()
+                if k.startswith("cme.")}
+
+    t_phase = time.perf_counter()
+    stats = {"card": card}
+    path, _, nuclei, _ = cell_slide
+    tmp = tempfile.TemporaryDirectory()
+    results = f"{tmp.name}/results"
+    os.makedirs(f"{results}/model-outputs-csv")
+    # (l)'s drawn nuclei with seeded types: tumour nests where the tissue is
+    centres, radii, _ = nuclei
+    pick = rng.choice(len(centres), 4, replace=False)
+    nests = [(float(centres[i, 0]), float(centres[i, 1]), float(rng.uniform(500, 900)))
+             for i in pick]
+    small = typed_cells(centres.astype(np.float64), radii, nests, rng)
+    small.to_csv(f"{results}/model-outputs-csv/cells.csv", index=False)
+    # the second table on the cheapest slide that carries an mpp (its pixels
+    # are never read): uniform nuclei at (l)'s density over a square of tissue
+    big_side = int((BIG_CELLS * NUCLEUS_AREA) ** 0.5)
+    big_path = f"{tmp.name}/biopsy.tif"
+    write_pyramidal_tiff(big_path, np.full((256, 256, 3), 200, np.uint8), tile=(256, 256),
+                         compression="deflate", mpp=SLIDE_MPP, levels=1)
+    big_centres = rng.uniform(0, big_side, (BIG_CELLS, 2))
+    big_radii = rng.integers(*NUCLEUS_RADII, (BIG_CELLS, 2), endpoint=True)
+    big_nests = [(x, y, r) for x, y, r in zip(rng.uniform(0.1, 0.9, 12) * big_side,
+                                              rng.uniform(0.1, 0.9, 12) * big_side,
+                                              rng.uniform(800, 2000, 12))]
+    big = typed_cells(big_centres, big_radii, big_nests, rng)
+    big.to_csv(f"{results}/model-outputs-csv/biopsy.csv", index=False)
+    # the annotation merge's window of it: the WINDOW_CELLS nuclei nearest
+    # the square's centre, on another such slide
+    window_path = f"{tmp.name}/window.tif"
+    write_pyramidal_tiff(window_path, np.full((256, 256, 3), 200, np.uint8), tile=(256, 256),
+                         compression="deflate", mpp=SLIDE_MPP, levels=1)
+    near = np.argsort(np.abs(big_centres - big_side / 2).max(1), kind="stable")[:WINDOW_CELLS]
+    wresults = f"{tmp.name}/window"
+    os.makedirs(f"{wresults}/model-outputs-csv")
+    big.iloc[np.sort(near)].to_csv(f"{wresults}/model-outputs-csv/window.csv", index=False)
+    slides = [URIPath(path), URIPath(big_path)]
+    print(f"(r) analytics: (l)'s {len(small)} drawn nuclei (cells.csv) and {len(big)} nuclei over"
+          f" a {big_side * SLIDE_MPP / 1000:.1f} mm square (biopsy.csv, on a 256 px slide that"
+          f" carries the mpp), seeded PanNuke types around {len(nests)} and {len(big_nests)}"
+          f" tumour nests; {card}")
+
+    # H-Plot over both slides (host)
+    t0 = time.perf_counter()
+    failed = hplot_generation(wsi_paths=slides, results_dir=URIPath(results),
+                              base_type_list=["Neoplastic"], target_type_list=["Inflammatory"],
+                              num_workers=2)
+    hplot_s = time.perf_counter() - t0
+    layers = pd.read_csv(f"{results}/hplot-outputs.csv")
+    metrics = pd.read_csv(f"{results}/hmetrics-outputs.csv")
+    vals = layers[["value", "distance"]].to_numpy(np.float64)
+    num = metrics.drop(columns=["id", "valid"]).to_numpy(np.float64)
+    stats["hplot"] = {"seconds": hplot_s, "layers": len(layers), "metrics_rows": len(metrics)}
+    print(f"    hplot_generation: {hplot_s:.2f} s for 2 slides (host), {len(layers)} layer rows,"
+          f" {len(metrics)} metrics rows")
+    value = vals[:, 0]
+    metric_cols = metrics.drop(columns=["id", "valid"]).columns
+    undefined = sorted({c for c, bad in zip(metric_cols, np.isnan(num).any(0)) if bad})
+    check(failed == [] and len(metrics) == 2 and set(layers["id"]) == {"cells", "biopsy"}
+          and bool(np.isfinite(vals).all()) and bool(((value >= 0) & (value <= 1)).all())
+          and not np.isinf(num).any() and all("enrichment_index" in c for c in undefined),
+          f"(r) H-Plot: both slides' layers and metrics; every one of the {len(vals)} layer"
+          " rows finite, its value in [0, 1]; every metric finite but"
+          f" {int(np.isnan(num).sum())} of {num.size} NaN, all enrichment indices"
+          f" ({', '.join(undefined) or 'none'}: undefined where a layer range is not valid,"
+          " as the JAX package writes them)")
+
+    # CME over both slides: graphs, DGI on the card, the Leiden sweep, cells
+    torch.cuda.reset_peak_memory_stats()
+    hot_stage_report(reset=True)
+    t0 = time.perf_counter()
+    cme_generation(wsi_paths=slides, results_dir=URIPath(results), epochs=CME_EPOCHS,
+                   cme_cellular=True, cme_clustering_k=0,
+                   cme_clustering_resolutions=CME_RESOLUTIONS)
+    cme_s = time.perf_counter() - t0
+    sec = stages()
+    dgi_s = sec["dgi"] - sec["embed_full_graph"]
+    stats["cme"] = {"seconds": cme_s, "stages_s": dict(sec), "dgi_epochs_s": CME_EPOCHS / dgi_s,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "outputs": cme_outputs_check(check, "r", results, ())}
+    print(f"    cme_generation (cellular, both slides, {CME_EPOCHS} epochs, resolutions"
+          f" {CME_RESOLUTIONS}): {cme_s:.2f} s; graph build {sec['graph_build']:.2f} s (host),"
+          f" DGI {dgi_s:.2f} s on the card ({CME_EPOCHS / dgi_s:.1f} epochs/s; the"
+          f" {BIG_CELLS}-cell graph on sampled subgraphs of 16,384), full-graph embedding"
+          f" {sec['embed_full_graph']:.2f} s (host), Leiden sweep {sec['leiden_sweep']:.2f} s"
+          f" (kNN and silhouettes on the card); peak {stats['cme']['peak_gib']:.2f} GiB; {card}")
+    print(f"    CMEs: {json.dumps(stats['cme']['outputs'])}")
+
+    # the annotation merge (phase 5) on the window of the large table
+    hot_stage_report(reset=True)
+    t0 = time.perf_counter()
+    cme_generation(wsi_paths=[URIPath(window_path)], results_dir=URIPath(wresults),
+                   epochs=CME_EPOCHS, cme_cellular=True, cme_annotation=True,
+                   cme_clustering_k=0, cme_clustering_resolutions=CME_RESOLUTIONS)
+    wcme_s = time.perf_counter() - t0
+    sec = stages()
+    stats["window"] = {"seconds": wcme_s, "stages_s": sec,
+                       "outputs": cme_outputs_check(check, "r", wresults, ("window",))}
+    ws = stats["window"]["outputs"]["window"]
+    print(f"    cme_generation on {WINDOW_CELLS} of its nuclei (cellular and annotation):"
+          f" {wcme_s:.2f} s; graph build {sec['graph_build']:.2f} s, DGI {sec['dgi']:.2f} s,"
+          f" Leiden sweep {sec['leiden_sweep']:.2f} s, Voronoi merge"
+          f" {sec['voronoi_merge']:.2f} s ({ws['kept'] / sec['voronoi_merge']:.0f} cells/s,"
+          f" host) into {ws['regions']} regions; {card}")
+
+    # one DGI step on the card against the CPU, same weights and inputs
+    import pickle
+
+    with open(f"{results}/slide-graphs.joblib", "rb") as fh:
+        graph = pickle.load(fh)["slides"][0]
+    n = graph["X_normalized"].shape[0]
+    g = pad_graph(graph["X_normalized"], graph["edge_index"], -(-(n + 1) // 8) * 8,
+                  -(-graph["edge_index"].shape[1] // 8) * 8)
+    perm = np.arange(len(g.x))
+    perm[:n] = np.random.default_rng(SEED).permutation(n)
+    losses = {}
+    for where in ("cpu", dev):
+        model = DGI(g.x.shape[1], seed=SEED).to(where)
+        step = make_dgi_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3))
+        x = torch.from_numpy(g.x)[None].to(where)
+        losses[str(where)] = float(step(
+            x, x[:, torch.from_numpy(perm).to(where)],
+            torch.from_numpy(g.edges.astype(np.int64))[None].to(where),
+            torch.from_numpy(g.edge_mask)[None].to(where),
+            torch.from_numpy(g.node_mask)[None].to(where),
+            torch.from_numpy(g.loss_mask)[None].to(where)))
+    rel = abs(losses[str(dev)] - losses["cpu"]) / abs(losses["cpu"])
+    check(rel <= 1e-4, f"(r) one DGI step on (l)'s graph ({n} nodes): loss {losses[str(dev)]:.7g}"
+          f" on the card, {losses['cpu']:.7g} on the CPU, relative {rel:.2g} (<= 1e-4)")
+
+    # H-Optimus: seeded ViT-g/14 at full width and depth, on the card
+    t0 = time.perf_counter()
+    host_model = randomize_weights(FoundationViT(HOPTIMUS_VIT_G, img_size=224).eval(), SEED)
+    state = host_model.state_dict()
+    build_s = time.perf_counter() - t0
+    source = foundation_mod.SlideCropSource(get_wsi_cls()(path), centres[:2].astype(np.int64))
+    crops = np.stack([source[0], source[1]])
+    parity = vit_hoptimus_extractor(state_dict=state, batch_size=2, mixed_precision=False,
+                                    device=dev)
+    on_card = parity(crops)
+    with torch.no_grad():
+        mean = torch.tensor(foundation_mod.HOPTIMUS_MEAN)
+        std = torch.tensor(foundation_mod.HOPTIMUS_STD)
+        on_host = host_model((torch.from_numpy(crops).float() / 255.0 - mean) / std).numpy()
+    err = float(np.abs(on_card - on_host).max())
+    print(f"    H-Optimus-0 (ViT-g/14: {HOPTIMUS_VIT_G.embed_dim} wide, {HOPTIMUS_VIT_G.depth}"
+          f" blocks, {HOPTIMUS_VIT_G.num_heads} heads, {HOPTIMUS_VIT_G.reg_tokens} registers;"
+          f" {sum(p.numel() for p in host_model.parameters()) / 1e6:.1f} M seeded parameters,"
+          f" {build_s:.1f} s on the host)")
+    check(err <= 1e-3, f"(r) H-Optimus parity on the card vs the CPU, 2 crops: max |d| {err:.3g}"
+          " (<= 1e-3)")
+    del parity, host_model
+    torch.cuda.empty_cache()
+
+    extractor = vit_hoptimus_extractor(state_dict=state, batch_size=HOPTIMUS_BATCH,
+                                       mixed_precision=True, device=dev)
+    del state
+    crop_stats = {"crops": 0, "batches": 0, "seconds": 0.0}
+
+    def timed_extractor(images):
+        t = time.perf_counter()
+        out = extractor(images)
+        crop_stats["seconds"] += time.perf_counter() - t
+        crop_stats["crops"] += len(images)
+        crop_stats["batches"] += -(-len(images) // HOPTIMUS_BATCH)
+        return out
+
+    hresults = f"{tmp.name}/hoptimus"
+    os.makedirs(f"{hresults}/model-outputs-csv")
+    small.to_csv(f"{hresults}/model-outputs-csv/cells.csv", index=False)
+    torch.cuda.reset_peak_memory_stats()
+    hot_stage_report(reset=True)
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    cme_generation(wsi_paths=[URIPath(path)], results_dir=URIPath(hresults),
+                   epochs=CME_EPOCHS, use_hoptimus=True, feature_extractor=timed_extractor,
+                   cme_cellular=True, cme_annotation=True, cme_clustering_k=0,
+                   cme_clustering_resolutions=CME_RESOLUTIONS)
+    hcme_s = time.perf_counter() - t0
+    launches = {name: fn.launches for fn, name in kernels.items()}
+    k2 = launches["window_attention"]
+    sec = stages()
+    stats["hoptimus"] = {
+        "seconds": hcme_s, "stages_s": dict(sec), "crops": crop_stats["crops"],
+        "batches": crop_stats["batches"], "crops_s": crop_stats["crops"] / crop_stats["seconds"],
+        "crops_s_with_read": crop_stats["crops"] / sec["foundation_block"],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "k2_launches": k2,
+        "k1_launches": launches["fused_preprocess"],
+        "outputs": cme_outputs_check(check, "r", hresults, ("cells",)),
+        "build_s": build_s}
+    hs = stats["hoptimus"]
+    print(f"    cme_generation with H-Optimus on (l)'s slide (cellular and annotation):"
+          f" {hcme_s:.2f} s; {hs['crops']} crops of 224 px in {hs['batches']} batches of"
+          f" B={HOPTIMUS_BATCH}: {hs['crops_s']:.1f} crops/s on the card (bf16),"
+          f" {hs['crops_s_with_read']:.1f} over the whole block (the crops' reads, PCA and"
+          f" imputation); graph build"
+          f" {sec['graph_build']:.2f} s, DGI {sec['dgi']:.2f} s, Leiden sweep"
+          f" {sec['leiden_sweep']:.2f} s, Voronoi merge {sec['voronoi_merge']:.2f} s"
+          f" ({hs['outputs']['cells']['kept'] / max(sec['voronoi_merge'], 1e-9):.0f} cells/s,"
+          f" host); peak {hs['peak_gib']:.2f} GiB; {card}")
+    check(k2 == 40 * crop_stats["batches"] and crop_stats["batches"] > 0,
+          f"(r) H-Optimus: K2 launches {k2} (40 per batch x {crop_stats['batches']} batches)")
+    check(hs["k1_launches"] == 0, "(r) K1 launches 0")
+    del extractor
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+    stats["seconds"] = time.perf_counter() - t_phase
+    print(f"    (r) took {stats['seconds']:.1f} s; {_smi('clocks.sm,power.draw,temperature.gpu')}"
+          " (SM clock, power, temperature)")
+    return stats
+
+
+def resident_cell_phase(check, kernels, rng, dev, phase, tag, model_name, per_batch):
+    """(g), (h), (q): a cell model's CellEngine in parity and bf16 over
+    CELL_BATCHES resident batches of B=CELL_BATCH seeded patches (seeded
+    weights), through device_postprocess -> scatter, then its result checks
+    (printed under ``tag``). Returns (stats per mode, the two engines)."""
+    import torch
+
+    from wsinsight_tpu_torch.engine import CellEngine, TileRemapStitcher
+    from wsinsight_tpu_torch.zoo import get_registered_model
+
+    side = CELL_GRID * 164
+    handle = get_registered_model(model_name)
+    cfg = handle.config
+    out_px = cfg.patch_size_pixels - 2 * cfg.halo_size_pixels
+    t0 = time.perf_counter()
+    data = rng.integers(0, 256, (CELL_BATCHES, CELL_BATCH, cfg.patch_size_pixels,
+                                 cfg.patch_size_pixels, 3), dtype=np.uint8)
+    # patch i's output lands on the canvas at grid cell (i // CELL_GRID, i % CELL_GRID)
+    idx = np.arange(CELL_BATCHES * CELL_BATCH).reshape(CELL_BATCHES, CELL_BATCH)
+    xy = np.stack([idx % CELL_GRID * out_px - cfg.halo_size_pixels,
+                   idx // CELL_GRID * out_px - cfg.halo_size_pixels,
+                   np.full_like(idx, cfg.patch_size_pixels),
+                   np.full_like(idx, cfg.patch_size_pixels)], axis=-1)
+    engines = {m: CellEngine(handle, mixed_precision=m, init_random=True, seed=SEED)
+               for m in (False, True)}
+    print(f"({phase}) {model_name}: {CELL_BATCHES} batches of B={CELL_BATCH} seeded"
+          f" {cfg.patch_size_pixels}px patches; two engines (seeded weights,"
+          f" {sum(p.numel() for p in engines[False].model.parameters()) / 1e6:.1f} M"
+          f" parameters) built in {time.perf_counter() - t0:.1f} s")
+    stitchers, stats = {}, {}
+    for mixed, engine in engines.items():
+        warm = TileRemapStitcher(cfg.num_classes, side, side, out_px, cfg.halo_size_pixels,
+                                 0.25, cfg.spacing_um_px)
+        run_cells(engine, warm, data[:1], xy[:1])  # warm-up: cuDNN plans, pinned buffers
+        st = TileRemapStitcher(cfg.num_classes, side, side, out_px, cfg.halo_size_pixels,
+                               0.25, cfg.spacing_um_px)
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels:
+            fn.launches = 0
+        secs = run_cells(engine, st, data, xy)
+        counts = {name: fn.launches for fn, name in kernels.items()}
+        stitchers[mixed] = st
+        x = engine.put(data[1])
+        pred = engine.dispatch(x)
+        fwd = _cuda_ms(lambda: engine.dispatch(x), reps=3)
+        post = _cuda_ms(lambda: st.device_postprocess(pred), reps=10)
+        share = k2_share(engine, x)
+        mode = "bf16" if mixed else "parity"
+        stats[mode] = {"patches_s": CELL_BATCHES * CELL_BATCH / secs,
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       "forward_ms": fwd, "post_ms": post, "k2_share": share,
+                       "launches": counts}
+        print(f"    {mode}: {stats[mode]['patches_s']:.1f} patches/s, peak"
+              f" {stats[mode]['peak_gib']:.2f} GiB; device per batch: forward {fwd:.2f} ms"
+              f" (K2 {share:.1%} of the forward's kernel time), post-process {post:.2f} ms")
+        check(counts["window_attention"] == per_batch * CELL_BATCHES,
+              f"{mode}: K2 launches over the cell path {counts['window_attention']}"
+              f" ({per_batch} per batch x {CELL_BATCHES})")
+        check(counts["fused_preprocess"] == 0, f"{mode}: K1 launches over the cell path 0")
+        check(share > 0, f"{mode}: K2's share of the forward's kernel time {share:.1%}"
+              " (> 0: the trace finds K2's kernel by name)")
+        del x, pred
+    print(f"    {_smi('clocks.sm,power.draw,temperature.gpu')} (SM clock, power, temperature)")
+
+    # (i) results, this model's part -----------------------------------
+    cpu_engine = CellEngine(handle, init_random=True, seed=SEED, device="cpu")
+    on_card = engines[False].run_batch(data[0, :2])
+    on_host = cpu_engine.run_batch(data[0, :2])
+    err = max(float((on_card[k].cpu() - on_host[k]).abs().max())
+              for k in ("nuclei_binary_map", "hv_map", "nuclei_type_map"))
+    check(err <= 1e-3, f"({tag}) {model_name} parity on the card vs the CPU, 2 patches:"
+          f" max |d| of the maps {err:.3g} (<= 1e-3)")
+    p32, p16 = stitchers[False], stitchers[True]
+    d_np = float(np.abs(p16.np_map - p32.np_map).max())
+    d_hv = float(np.abs(p16.hv_map - p32.hv_map).max())
+    d_tp = float(np.abs(p16.tp_map - p32.tp_map).max())
+    np_flip = float(np.mean((p16.np_map > 0.5) != (p32.np_map > 0.5)))
+    tp_flip = float(np.mean(p16.tp_map.argmax(-1) != p32.tp_map.argmax(-1)))
+    check(np_flip <= 0.01, f"({tag}) {model_name} bf16 vs parity over {side}x{side} px: max |d|"
+          f" NP {d_np:.3g}, HV {d_hv:.3g}, TP {d_tp:.3g}; NP > 0.5 differs on"
+          f" {np_flip:.3%} (<= 1%), TP argmax on {tp_flip:.3%}")
+    for mode, st in (("parity", p32), ("bf16", p16)):
+        ok = all(bool(np.isfinite(m).all()) for m in (st.np_map, st.hv_map, st.tp_map))
+        # uint8 transfer: each of K probabilities is within half a level
+        tp_sum = float(np.abs(st.tp_map.sum(-1) - 1.0).max())
+        check(ok and tp_sum <= cfg.num_classes * 0.5 / 255 + 1e-6,
+              f"({tag}) {model_name} {mode} canvas finite, TP rows sum to 1 within"
+              f" {tp_sum:.3g} (quantized transfer, <= K/2 levels)")
+    exact = TileRemapStitcher(cfg.num_classes, side, side, out_px, cfg.halo_size_pixels,
+                              0.25, cfg.spacing_um_px, transfer_dtype="float32")
+    maps = [m.cpu().numpy() for m in exact.device_postprocess(on_card)]
+    tp_sum = float(np.abs(maps[2].sum(-1) - 1.0).max())
+    check(all(np.isfinite(m).all() for m in maps) and tp_sum <= 1e-5,
+          f"({tag}) {model_name} float32 maps finite, TP rows sum to 1 within {tp_sum:.3g}")
+    del data, cpu_engine, stitchers, p32, p16, exact, on_card, on_host
+    return stats, engines
+
+
 def main() -> int:
     import torch
 
@@ -2109,7 +2629,7 @@ def main() -> int:
               " the root of a checkout of the repository", file=sys.stderr)
         return 1
     from wsinsight_tpu_torch import native
-    from wsinsight_tpu_torch.engine import CellEngine, ClassifierEngine, TileRemapStitcher
+    from wsinsight_tpu_torch.engine import ClassifierEngine
     from wsinsight_tpu_torch.ops.flash_attn import window_attention, window_attention_reference
     from wsinsight_tpu_torch.ops import cuda_build, native_build
     from wsinsight_tpu_torch.ops.fused_preprocess import (
@@ -2316,97 +2836,15 @@ def main() -> int:
 
     # (g), (h) -------------------------------------------------------------
     cell = {}
-    side = CELL_GRID * 164
     for phase, (model_name, per_batch) in zip("gh", CELL_MODELS):
-        handle = get_registered_model(model_name)
-        cfg = handle.config
-        out_px = cfg.patch_size_pixels - 2 * cfg.halo_size_pixels
-        t0 = time.perf_counter()
-        data = rng.integers(0, 256, (CELL_BATCHES, CELL_BATCH, cfg.patch_size_pixels,
-                                     cfg.patch_size_pixels, 3), dtype=np.uint8)
-        # patch i's output lands on the canvas at grid cell (i // CELL_GRID, i % CELL_GRID)
-        idx = np.arange(CELL_BATCHES * CELL_BATCH).reshape(CELL_BATCHES, CELL_BATCH)
-        xy = np.stack([idx % CELL_GRID * out_px - cfg.halo_size_pixels,
-                       idx // CELL_GRID * out_px - cfg.halo_size_pixels,
-                       np.full_like(idx, cfg.patch_size_pixels),
-                       np.full_like(idx, cfg.patch_size_pixels)], axis=-1)
-        engines = {m: CellEngine(handle, mixed_precision=m, init_random=True, seed=SEED)
-                   for m in (False, True)}
-        print(f"({phase}) {model_name}: {CELL_BATCHES} batches of B={CELL_BATCH} seeded"
-              f" {cfg.patch_size_pixels}px patches; two engines (seeded weights,"
-              f" {sum(p.numel() for p in engines[False].model.parameters()) / 1e6:.1f} M"
-              f" parameters) built in {time.perf_counter() - t0:.1f} s")
-        stitchers, stats = {}, {}
-        for mixed, engine in engines.items():
-            warm = TileRemapStitcher(cfg.num_classes, side, side, out_px, cfg.halo_size_pixels,
-                                     0.25, cfg.spacing_um_px)
-            run_cells(engine, warm, data[:1], xy[:1])  # warm-up: cuDNN plans, pinned buffers
-            st = TileRemapStitcher(cfg.num_classes, side, side, out_px, cfg.halo_size_pixels,
-                                   0.25, cfg.spacing_um_px)
-            torch.cuda.reset_peak_memory_stats()
-            for fn in kernels:
-                fn.launches = 0
-            secs = run_cells(engine, st, data, xy)
-            counts = {name: fn.launches for fn, name in kernels.items()}
-            stitchers[mixed] = st
-            x = engine.put(data[1])
-            pred = engine.dispatch(x)
-            fwd = _cuda_ms(lambda: engine.dispatch(x), reps=3)
-            post = _cuda_ms(lambda: st.device_postprocess(pred), reps=10)
-            share = k2_share(engine, x)
-            mode = "bf16" if mixed else "parity"
-            stats[mode] = {"patches_s": CELL_BATCHES * CELL_BATCH / secs,
-                           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-                           "forward_ms": fwd, "post_ms": post, "k2_share": share,
-                           "launches": counts}
-            print(f"    {mode}: {stats[mode]['patches_s']:.1f} patches/s, peak"
-                  f" {stats[mode]['peak_gib']:.2f} GiB; device per batch: forward {fwd:.2f} ms"
-                  f" (K2 {share:.1%} of the forward's kernel time), post-process {post:.2f} ms")
-            check(counts["window_attention"] == per_batch * CELL_BATCHES,
-                  f"{mode}: K2 launches over the cell path {counts['window_attention']}"
-                  f" ({per_batch} per batch x {CELL_BATCHES})")
-            check(counts["fused_preprocess"] == 0, f"{mode}: K1 launches over the cell path 0")
-            check(share > 0, f"{mode}: K2's share of the forward's kernel time {share:.1%}"
-                  " (> 0: the trace finds K2's kernel by name)")
-            del x, pred
-        print(f"    {_smi('clocks.sm,power.draw,temperature.gpu')} (SM clock, power, temperature)")
-
-        # (i) results, this model's part -----------------------------------
-        cpu_engine = CellEngine(handle, init_random=True, seed=SEED, device="cpu")
-        on_card = engines[False].run_batch(data[0, :2])
-        on_host = cpu_engine.run_batch(data[0, :2])
-        err = max(float((on_card[k].cpu() - on_host[k]).abs().max())
-                  for k in ("nuclei_binary_map", "hv_map", "nuclei_type_map"))
-        check(err <= 1e-3, f"(i) {model_name} parity on the card vs the CPU, 2 patches:"
-              f" max |d| of the maps {err:.3g} (<= 1e-3)")
-        p32, p16 = stitchers[False], stitchers[True]
-        d_np = float(np.abs(p16.np_map - p32.np_map).max())
-        d_hv = float(np.abs(p16.hv_map - p32.hv_map).max())
-        d_tp = float(np.abs(p16.tp_map - p32.tp_map).max())
-        np_flip = float(np.mean((p16.np_map > 0.5) != (p32.np_map > 0.5)))
-        tp_flip = float(np.mean(p16.tp_map.argmax(-1) != p32.tp_map.argmax(-1)))
-        check(np_flip <= 0.01, f"(i) {model_name} bf16 vs parity over {side}x{side} px: max |d|"
-              f" NP {d_np:.3g}, HV {d_hv:.3g}, TP {d_tp:.3g}; NP > 0.5 differs on"
-              f" {np_flip:.3%} (<= 1%), TP argmax on {tp_flip:.3%}")
-        for mode, st in (("parity", p32), ("bf16", p16)):
-            ok = all(bool(np.isfinite(m).all()) for m in (st.np_map, st.hv_map, st.tp_map))
-            # uint8 transfer: each of K probabilities is within half a level
-            tp_sum = float(np.abs(st.tp_map.sum(-1) - 1.0).max())
-            check(ok and tp_sum <= cfg.num_classes * 0.5 / 255 + 1e-6,
-                  f"(i) {model_name} {mode} canvas finite, TP rows sum to 1 within"
-                  f" {tp_sum:.3g} (quantized transfer, <= K/2 levels)")
-        exact = TileRemapStitcher(cfg.num_classes, side, side, out_px, cfg.halo_size_pixels,
-                                  0.25, cfg.spacing_um_px, transfer_dtype="float32")
-        maps = [m.cpu().numpy() for m in exact.device_postprocess(on_card)]
-        tp_sum = float(np.abs(maps[2].sum(-1) - 1.0).max())
-        check(all(np.isfinite(m).all() for m in maps) and tp_sum <= 1e-5,
-              f"(i) {model_name} float32 maps finite, TP rows sum to 1 within {tp_sum:.3g}")
+        stats, engines = resident_cell_phase(check, kernels, rng, dev, phase, "i", model_name,
+                                             per_batch)
         cell[model_name] = stats
         if model_name == CELL_SLIDE_MODEL:  # kept for (l), on the host until then
             slide_engines = engines
             for engine in engines.values():
                 engine.model.to("cpu")
-        del data, engines, cpu_engine, stitchers, p32, p16, exact, on_card, on_host
+        del engines
         torch.cuda.empty_cache()
 
     # (j) ------------------------------------------------------------------
@@ -2427,6 +2865,12 @@ def main() -> int:
 
     # (p) ------------------------------------------------------------------
     stardist = stardist_phase(check, kernels, card, nuclei_slide)
+
+    # (q) ------------------------------------------------------------------
+    virchow = virchow_phase(check, kernels, card, rng, dev, nuclei_slide)
+
+    # (r) ------------------------------------------------------------------
+    analytics = analytics_phase(check, kernels, card, rng, dev, nuclei_slide)
     nuclei_tmp.cleanup()
 
     if check.failed:
@@ -2441,7 +2885,8 @@ def main() -> int:
                    if s["shape"] == "sam_h_windowed" and s["dtype"] == "bfloat16")
     k2_launches = sum(st["launches"]["window_attention"]
                       for stats in cell.values() for st in stats.values())
-    k2_launches += cell_slide["k2_launches"]
+    k2_launches += cell_slide["k2_launches"] + virchow["k2_launches"]
+    k2_launches += analytics["hoptimus"]["k2_launches"]
     record = {"kernels": [{
         "name": "fused_preprocess",
         "route": "cuda",
@@ -2481,6 +2926,8 @@ def main() -> int:
     print(json.dumps({"cell_slide": cell_slide["stats"]}))
     print(json.dumps({"hovernet": hovernet}))
     print(json.dumps({"stardist": stardist}))
+    print(json.dumps({"virchow": virchow}))
+    print(json.dumps({"analytics": analytics}))
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

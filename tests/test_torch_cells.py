@@ -305,10 +305,21 @@ def test_cell_engine_refuses_unported_options(monkeypatch, jax_cell_model, var, 
         CellEngine(load_local_model(*jax_cell_model), device="cpu")
 
 
-def test_virchow_and_foundation_raise():
-    from wsinsight_tpu_torch.models.vit import HOPTIMUS_VIT_G, FoundationViT
+def test_virchow_and_foundation_build():
+    """CellViT-Virchow and H-Optimus-0 build at full size (on the meta
+    device: shapes only): Virchow's SwiGLU hidden int(1280 * 5.3375) = 6832
+    and its native 16x16 pos-embed grid at 256 px, H-Optimus' hidden 4096, 4
+    registers and its patch-only pos-embed."""
+    from wsinsight_tpu_torch.models.vit import FoundationViT
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model("cellvit-virchow", 6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FoundationViT(HOPTIMUS_VIT_G)
+    with torch.device("meta"):
+        virchow = create_model("cellvit-virchow", 6, img_size=256)
+        hoptimus = create_model("hoptimus", 0)
+    assert isinstance(hoptimus, FoundationViT)
+    enc = virchow.encoder
+    assert len(enc.blocks) == 32 and enc.pos_embed.shape == (1, 257, 1280)
+    assert enc.blocks[0].mlp.fc1.weight.shape == (2 * 6832, 1280)
+    assert enc.blocks[0].ls1.gamma.shape == (1280,)
+    assert len(hoptimus.blocks) == 40 and hoptimus.pos_embed.shape == (1, 256, 1536)
+    assert hoptimus.reg_token.shape == (1, 4, 1536)
+    assert hoptimus.blocks[0].mlp.fc1.weight.shape == (2 * 4096, 1536)

@@ -3,8 +3,8 @@
 The same inputs, made from a numpy seed, go through each JAX module and its
 copy in the port: tissue segmentation, the patch grid, the TIFF writer and
 reader, the patch file, ``PatchBatchSource`` (with its input options) and
-``plan_slide``. Then the options the port refuses, each naming the ROADMAP.md
-item it waits for.
+``plan_slide``. Then `run`'s analytics options against the JAX CLI's, and
+the options the port refuses, each naming the ROADMAP.md item it waits for.
 
 Both readers decode regions with their native (C++) reader, the same source
 in each package, so JPEG pages too must agree byte for byte.
@@ -420,30 +420,125 @@ def test_profile_env_raises(monkeypatch):
             pass
 
 
-@pytest.mark.parametrize("args,item", [(["--hplot"], 9), (["--cme-cellular"], 9)])
-def test_cli_refuses_unported_options(slides, tmp_path, args, item):
+def _typed_cells(n=20, step=10.0, radius=55.0):
+    """A model-output CSV's cells on a grid (px): a tumour disk, an immune
+    ring around it, other cells outside."""
+    import pandas as pd
+
+    xs, ys = np.meshgrid(np.arange(n) * step + 200, np.arange(n) * step + 200)
+    cx, cy = xs.ravel(), ys.ravel()
+    d = np.hypot(cx - cx.mean(), cy - cy.mean())
+    tumor, immune = d < radius, (d >= radius) & (d < radius + 40)
+    p_t, p_i = np.where(tumor, 0.9, 0.05), np.where(immune, 0.9, 0.05)
+    return pd.DataFrame({"minx": cx - 4, "miny": cy - 4, "width": 8, "height": 8,
+                         "prob_tumor": p_t, "prob_immune": p_i,
+                         "prob_other": 1.0 - np.maximum(p_t, p_i)})
+
+
+@pytest.fixture(scope="module")
+def analytics_runs(slides, tmp_path_factory):
+    """(port results, JAX results) of each CLI's `run --hplot ...
+    --cme-cellular --cme-annotation --geojson --omecsv` over the deflate
+    slide, with a seeded local classifier whose classes are the cells'
+    types. The model-output CSV is written first (the typed cells), so
+    inference skips the slide and the analytics and their exports run on it.
+    Both runs' DGI embeddings are the slide graph's z-scored features beside
+    seeded noise, which breaks the ties between cells of one composition
+    (the training is held to the JAX package's in test_torch_insightlib.py)."""
+    import shutil
+
     from click.testing import CliRunner
 
-    from wsinsight_tpu_torch.cli.cli import cli
+    import wsinsight_tpu.insightlib.cme as jax_cme
+    import wsinsight_tpu_torch.insightlib.cme as port_cme
+    from wsinsight_tpu.cli.cli import cli as jax_cli
+    from wsinsight_tpu.zoo import make_random_local_model
+    from wsinsight_tpu_torch.cli.cli import cli as port_cli
 
-    res = CliRunner().invoke(cli, ["run", "-i", str(slides["deflate"].parent), "-o",
-                                   str(tmp_path / "r"), *args,
-                                   "-m", "breast-tumor-resnet34.tcga-brca"])
-    assert res.exit_code == 2, res.output
-    assert f"Queue 1, item {item}" in res.output
-    assert not (tmp_path / "r" / "patches").exists()
+    out = tmp_path_factory.mktemp("analytics_runs")
+    (out / "slides").mkdir()
+    shutil.copy(slides["deflate"], out / "slides")
+    cfg, weights = make_random_local_model("resnet34", 3, out / "model", resize_size=64,
+                                           class_names=["tumor", "immune", "other"])
+    args = ["run", "-i", str(out / "slides"), "--config", str(cfg), "--model-path",
+            str(weights), "--hplot", "--hplot-base-types", "tumor", "--hplot-target-types",
+            "immune", "--cme-cellular", "--cme-annotation", "--geojson", "--omecsv", "-n", "1",
+            "--export-workers", "1"]
+    z_lists = []
+
+    def embeddings(slides, **kw):
+        rng = np.random.default_rng(0)
+        z_lists.append([np.hstack([s["X_normalized"], rng.normal(0, 0.5, (len(s["X"]), 8))])
+                        .astype(np.float32) for s in slides])
+        return None, z_lists[-1]
+
+    mp = pytest.MonkeyPatch()
+    mp.setenv("WSINFER_FORCE_CPU", "1")
+    mp.setattr(jax_cme, "train_dgi_multi", embeddings)
+    mp.setattr(port_cme, "train_dgi_multi", embeddings)
+    try:
+        for name, cli in (("jax", jax_cli), ("port", port_cli)):
+            (out / name / "model-outputs-csv").mkdir(parents=True)
+            _typed_cells().to_csv(out / name / "model-outputs-csv" / "tissue_deflate.csv",
+                                  index=False)
+            res = CliRunner().invoke(cli, [*args, "-o", str(out / name)],
+                                     catch_exceptions=False)
+            assert res.exit_code == 0, res.output
+            assert "Output CSV exists... skipping." in res.output
+    finally:
+        mp.undo()
+    np.testing.assert_array_equal(*(z[0] for z in z_lists))
+    return out / "port", out / "jax"
 
 
-@pytest.mark.parametrize("model,item", [("CellViT-Virchow-x40-AMP", 8)])
-def test_cli_refuses_object_based_models(slides, tmp_path, model, item):
+@pytest.mark.parametrize("option,written", [
+    ("--hplot", ["hplot-outputs.csv", "hmetrics-outputs.csv",
+                 "hplot-outputs-csv/cells/tissue_deflate.csv",
+                 "hplot-outputs-csv/hplots/tissue_deflate.csv",
+                 "hplot-outputs-csv/hmetrics/tissue_deflate.json",
+                 "hplot-outputs-geojson/tissue_deflate.geojson",
+                 "hplot-outputs-omecsv/tissue_deflate.ome.csv.gz"]),
+    ("--cme-cellular", ["cme-outputs-csv/cells/tissue_deflate.csv",
+                        "cme-outputs-csv/cmes/tissue_deflate.csv",
+                        "cme-outputs-geojson/cells/tissue_deflate.geojson"]),
+])
+def test_cli_run_analytics_options(analytics_runs, option, written):
+    """`run` with the analytics options (refused before they were ported)
+    writes the JAX CLI's files: the tables byte for byte, the GeoJSON
+    features but for their ids (a fresh UUID per feature in each run), the
+    OME-CSV's decompressed text."""
+    import gzip
+    import json
+
+    port, jax_res = analytics_runs
+    for rel in written:
+        got, want = (port / rel).read_bytes(), (jax_res / rel).read_bytes()
+        if rel.endswith(".geojson"):
+            got, want = (json.loads(b)["features"] for b in (got, want))
+            assert len({f.pop("id") for f in got}) == len(got) > 0
+            for f in want:
+                f.pop("id")
+        elif rel.endswith(".gz"):
+            got, want = gzip.decompress(got), gzip.decompress(want)
+        else:  # a table: a header and rows
+            assert got.count(b"\n") > 1, rel
+        assert got == want, rel
+
+
+@pytest.mark.parametrize("model", ["CellViT-Virchow-x40-AMP"])
+def test_cli_patches_virchow_model(slides, tmp_path, model):
+    """`patch` with the Virchow cell model (refused before its encoder was
+    ported) plans the slide's halo grid."""
     from click.testing import CliRunner
 
+    import h5py
     from wsinsight_tpu_torch.cli.cli import cli
 
-    for cmd in ("patch", "infer"):
-        res = CliRunner().invoke(cli, [cmd, "-i", str(slides["deflate"].parent), "-o",
-                                       str(tmp_path / "r"), "-m", model])
-        assert res.exit_code == 2 and f"Queue 1, item {item}" in res.output, res.output
+    res = CliRunner().invoke(cli, ["patch", "-i", str(slides["deflate"].parent), "-o",
+                                   str(tmp_path / "r"), "-m", model])
+    assert res.exit_code == 0, res.output
+    with h5py.File(tmp_path / "r" / "patches" / "tissue_deflate.h5", "r") as f:
+        assert f["coords"].shape[0] > 0
 
 
 @pytest.mark.parametrize("model,object_detection", [
@@ -451,11 +546,10 @@ def test_cli_refuses_object_based_models(slides, tmp_path, model, item):
     ("pancancer-lymphocytes-inceptionv4.tcga", "stardist"),
     ("pancancer-lymphocytes-inceptionv4.tcga", None),  # object-based, no detector named
 ])
-def test_refuse_unported_model_lets_hovernet_and_stardist_through(model, object_detection):
-    """HoVer-Net and object-based StarDist configs pass the CLI's refusal;
-    Virchow (Queue 1, item 8) still stops there."""
-    import click
-
+def test_model_flags_of_object_based_models(model, object_detection):
+    """HoVer-Net and object-based StarDist configs are object-based for the
+    CLI, with their halo, and Virchow's registered config is an end2end cell
+    model with CellViT's halo of 46."""
     from wsinsight_tpu_torch.cli import _options as opt
     from wsinsight_tpu_torch.zoo import ObjectDetectionConfiguration, get_registered_model
 
@@ -466,10 +560,9 @@ def test_refuse_unported_model_lets_hovernet_and_stardist_through(model, object_
                                           ObjectDetectionConfiguration(name=object_detection))
     flags = opt.model_flags(handle)
     assert flags["object_based"]
-    opt.refuse_unported_model(flags, handle.config.architecture)
-    virchow = get_registered_model("CellViT-Virchow-x40-AMP")
-    with pytest.raises(click.UsageError, match="Queue 1, item 8"):
-        opt.refuse_unported_model(opt.model_flags(virchow), virchow.config.architecture)
+    virchow = opt.model_flags(get_registered_model("CellViT-Virchow-x40-AMP"))
+    assert virchow["object_based"] and virchow["halo_size_px"] == 46
+    assert virchow["object_detection"] == "end2end"
 
 
 def test_cli_refuses_multi_host(monkeypatch, tmp_path):
@@ -484,12 +577,13 @@ def test_cli_refuses_multi_host(monkeypatch, tmp_path):
 
 
 def test_cli_commands_and_options_match_jax():
-    """The port's patch / infer / run take the JAX commands' options, names
-    and defaults alike."""
+    """The port's patch / infer / run / hplot / cme take the JAX commands'
+    options, names and defaults alike; only `models` is not ported."""
     from wsinsight_tpu.cli.cli import cli as jax_cli
     from wsinsight_tpu_torch.cli.cli import cli as port_cli
 
-    assert set(port_cli.commands) == {"patch", "infer", "run"}
+    assert set(port_cli.commands) == {"patch", "infer", "run", "hplot", "cme"}
+    assert set(jax_cli.commands) - set(port_cli.commands) == {"models"}
     for name in port_cli.commands:
         ours = {p.name: (p.opts, p.default) for p in port_cli.commands[name].params}
         theirs = {p.name: (p.opts, p.default) for p in jax_cli.commands[name].params}

@@ -31,7 +31,9 @@ from wsinsight_tpu_torch.ops.flash_attn import (  # noqa: E402
     window_attention,
     window_attention_reference,
 )
-from wsinsight_tpu_torch.models.vit import SAM_VIT_B, SAM_VIT_H, SAM_VIT_L, VIT_256  # noqa: E402
+from wsinsight_tpu_torch.models.vit import (  # noqa: E402
+    HOPTIMUS_VIT_G, SAM_VIT_B, SAM_VIT_H, SAM_VIT_L, VIRCHOW_VIT_H, VIT_256,
+)
 from wsinsight_tpu_torch.ops.preprocess import _pil_bilinear_weights  # noqa: E402
 
 MEAN = (0.7238, 0.5716, 0.6779)  # breast-tumor-resnet34.tcga-brca
@@ -313,11 +315,15 @@ def test_kernel_rejects_bad_input(cuda_device):
 
 # K2 at the main path's shapes, small B: (name, grid HP x WP, dim, heads,
 # window, with rel-pos). CellViT-SAM-H windowed (16x16 padded to 28x28, 14x14
-# windows) and global blocks, and CellViT-256 (cls + 16x16 tokens as one row).
+# windows) and global blocks, CellViT-256 (cls + 16x16 tokens as one row),
+# CellViT-Virchow at 256 px (cls + 18x18 tokens, hd 80) and H-Optimus-0 at
+# 224 px (cls + 4 registers + 16x16 tokens, hd 64).
 K2_SHAPES = [
     ("sam_h_windowed", (28, 28), 1280, 16, 14, True),
     ("sam_h_global", (16, 16), 1280, 16, 0, True),
     ("vit_256", (1, 257), 384, 6, 0, False),
+    ("virchow", (1, 325), 1280, 16, 0, False),
+    ("hoptimus", (1, 261), 1536, 24, 0, False),
 ]
 # f32: the same sums in another order. bf16: JAX's bar for its bf16 kernel
 # (tests/test_flash_attn.py, 5e-2): the rel values are rounded to bf16 after
@@ -449,13 +455,17 @@ def test_window_attention_real_rows_edges(cuda_device, name, shape, dim, heads, 
 
 def _zoo_k2_shapes():
     """(hd, ah, aw, rel) of every K2 launch the zoo's SAM-B/L/H (256 and
-    1024 px inputs) and ViT-256 encoders make."""
+    1024 px inputs), ViT-256 and Virchow (256 px) encoders and H-Optimus-0
+    (224 px) make."""
     shapes = []
     for cfg in (SAM_VIT_B, SAM_VIT_L, SAM_VIT_H):
         hd = cfg.embed_dim // cfg.num_heads
         shapes.append((hd, cfg.window_size, cfg.window_size, True))
         shapes += [(hd, g, g, True) for g in (16, 64)]
     shapes.append((VIT_256.embed_dim // VIT_256.num_heads, 1, 257, False))
+    for cfg, side in ((VIRCHOW_VIT_H, 256), (HOPTIMUS_VIT_G, 224)):
+        n = 1 + cfg.reg_tokens + (side // cfg.patch_size) ** 2
+        shapes.append((cfg.embed_dim // cfg.num_heads, 1, n, False))
     return shapes
 
 

@@ -148,7 +148,7 @@ def test_registry_copy_matches_jax():
     assert get_registered_model(name).config.to_dict() == jax_get(name).config.to_dict()
 
 
-@pytest.mark.parametrize("arch", ["hoptimus", "not_a_net"])
+@pytest.mark.parametrize("arch", ["vit_giant_patch14", "not_a_net"])
 def test_unported_architecture_raises(arch):
     with pytest.raises(UnknownArchitectureError, match="not yet ported"):
         create_model(arch, 2)
@@ -172,6 +172,10 @@ PORT_MODULES = (
     "writers.geojson", "writers.omecsv", "writers.qupath", "cli.convert_csv_to_sbubmi",
     # HoVer-Net and StarDist
     "models.hovernet", "models.stardist",
+    # the analytics and their CLI
+    "insightlib", "insightlib.helpers", "insightlib.voronoi", "insightlib.voronoi_exact",
+    "insightlib.hplot", "insightlib.gnn", "insightlib.cme", "insightlib.foundation",
+    "insightlib.stats", "cli.hplot", "cli.cme",
 )
 
 
@@ -194,12 +198,16 @@ def test_port_imports_no_jax():
 
 
 def test_port_imports_without_h5py_or_psutil():
-    """Every module of the port imports where h5py and psutil are missing (the
-    card's machine has no h5py), still loading no jax, flax or wsinsight_tpu."""
+    """Every module of the port imports where h5py, psutil, scikit-learn,
+    joblib and timm are missing (the H100 host the port is measured on has
+    none of them), still loading no jax, flax or wsinsight_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "sys.modules['h5py'] = None\n"
         "sys.modules['psutil'] = None\n"
+        "sys.modules['sklearn'] = None\n"
+        "sys.modules['joblib'] = None\n"
+        "sys.modules['timm'] = None\n"
         "import wsinsight_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"

@@ -5,11 +5,8 @@ cli/run.py:165-308); here they are factored into reusable decorators. Env vars
 honored: S3_STORAGE_OPTIONS (JSON fsspec kwargs), WSINSIGHT_REMOTE_CACHE_DIR.
 
 The port's commands take every option of the JAX package's, with the same
-names and defaults, the exporters and the QuPath pseudo-models
-(:func:`qupath_pseudo_model`) among them; an option whose branch is not
-ported yet (the analytics, --hplot and --cme-*) raises ``click.UsageError``
-naming the ROADMAP.md Queue 1 item it waits for (:func:`refuse_unported`,
-:func:`refuse_unported_model`).
+names and defaults, the exporters, the analytics and the QuPath
+pseudo-models (:func:`qupath_pseudo_model`) among them.
 """
 
 from __future__ import annotations
@@ -20,7 +17,6 @@ from pathlib import Path
 
 import click
 
-from ..errors import not_ported
 from ..uri_path import URIPath, URIPathType
 from ..zoo import ModelConfiguration, ModelHandle, get_registered_model
 
@@ -282,21 +278,6 @@ def qupath_pseudo_model(
     return ModelHandle(name=architecture, config=cfg)
 
 
-# Options whose branch waits for a Queue 1 item of ROADMAP.md: (param name, item).
-_UNPORTED_OPTIONS = (
-    ("hplot", 9),
-    ("cme_cellular", 9),
-    ("cme_annotation", 9),
-)
-
-
-def refuse_unported(params: dict) -> None:
-    """click.UsageError for a set option whose branch the port does not have."""
-    for name, item in _UNPORTED_OPTIONS:
-        if params.get(name):
-            raise click.UsageError(not_ported(f"--{name.replace('_', '-')}", item))
-
-
 def require_h5py() -> None:
     """The patch files between the stages are HDF5; say so plainly where h5py
     is missing, before a stage starts."""
@@ -307,18 +288,3 @@ def require_h5py() -> None:
             "the patch and infer stages hand the patch grid over in HDF5 files"
             " (results/patches/<slide>.h5), which needs h5py; it is not installed"
         ) from err
-
-
-# Cell architectures of the registry whose model waits for a Queue 1 item.
-_UNPORTED_CELL_ARCHITECTURES = {"cellvit_virchow": 8}
-
-
-def refuse_unported_model(flags: dict, architecture: str) -> None:
-    """click.UsageError, before any stage runs, for a cell model whose path
-    the port does not have: Virchow's encoder (item 8). End2end CellViT and
-    HoVer-Net models and StarDist pre-detection run."""
-    if not flags["object_based"]:
-        return
-    item = _UNPORTED_CELL_ARCHITECTURES.get(architecture.lower().replace("-", "_"))
-    if item is not None:
-        raise click.UsageError(not_ported(f"the {architecture} cell model", item))

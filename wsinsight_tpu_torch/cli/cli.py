@@ -1,8 +1,8 @@
 """Top-level click group (reference: wsinsight/cli/cli.py:22-55).
 
-Counterpart of wsinsight_tpu/cli/cli.py with the ``patch``, ``infer`` and
-``run`` commands; ``hplot`` and ``cme`` wait for ROADMAP.md Queue 1 item 9,
-``models`` and multi-host runs for item 10.
+Counterpart of wsinsight_tpu/cli/cli.py with the ``patch``, ``infer``,
+``run``, ``hplot`` and ``cme`` commands; ``models`` and multi-host runs wait
+for ROADMAP.md Queue 1 item 10.
 """
 
 from __future__ import annotations
@@ -53,6 +53,8 @@ def cli(backend: str | None = None, log_level: str = "info") -> None:
         set_backend(backend)
 
 
+from .cme import cme  # noqa: E402
+from .hplot import hplot  # noqa: E402
 from .infer import infer  # noqa: E402
 from .patch import patch  # noqa: E402
 from .run import run  # noqa: E402
@@ -60,3 +62,5 @@ from .run import run  # noqa: E402
 cli.add_command(run)
 cli.add_command(patch)
 cli.add_command(infer)
+cli.add_command(hplot)
+cli.add_command(cme)

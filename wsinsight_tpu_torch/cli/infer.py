@@ -8,11 +8,12 @@ variable bound only in QuPath branches.
 Counterpart of wsinsight_tpu/cli/infer.py, with the same options. The port
 runs patch classification into the model-output CSVs, with --fast-input and
 stain-normalized models, object-based classifiers on StarDist's nuclei,
-end2end cell models (CellViT, HoVer-Net: one row per nucleus, the polygons
-into the patch files) and the QuPath pseudo-models, and writes the GeoJSON
-(--geojson) and OME-CSV (--omecsv) exports of those CSVs. The analytics
-(--hplot, --cme-*) and Virchow models raise ``click.UsageError`` naming
-their ROADMAP.md item (``_options``). Reading the patch files needs h5py.
+end2end cell models (CellViT with SAM, ViT-256 or Virchow encoders,
+HoVer-Net: one row per nucleus, the polygons into the patch files) and the
+QuPath pseudo-models, writes the GeoJSON (--geojson) and OME-CSV (--omecsv)
+exports of those CSVs, and runs the analytics on them: H-Plot (--hplot) and
+CME (--cme-cellular, --cme-annotation) with their exports. Reading the patch
+files needs h5py.
 """
 
 from __future__ import annotations
@@ -109,7 +110,7 @@ def default_stitch_workers() -> int:
               help="Run CME region merging (annotation-level outputs).")
 @click.option("--cme-soft-mode", is_flag=True, default=False, show_default=True)
 @click.option("--cme-clustering-k", type=int, default=0, show_default=True,
-              help="Number of CME clusters; 0 = automatic (Leiden sweep; Louvain fallback).")
+              help="Number of CME clusters; 0 = automatic (Leiden sweep).")
 @click.option("--cme-clustering-resolutions", type=str, default="0.25,0.5,1.0,2.0",
               show_default=True)
 def infer(
@@ -163,12 +164,10 @@ def infer(
         qupath_geojson_annotation_dir,
     )
     opt.validate_model_args(model_name, config, model_path, qupath_dirs)
-    opt.refuse_unported(ctx.params)
     pseudo = model_name is None and config is None
     if not pseudo:
         model_obj = opt.resolve_model(model_name, config, model_path)
         flags = opt.model_flags(model_obj)
-        opt.refuse_unported_model(flags, model_obj.config.architecture)
     opt.require_h5py()
 
     if num_workers is None:
@@ -332,6 +331,120 @@ def infer(
     if failed_inference:
         click.secho(f"\nInference failed for {len(failed_inference)} slides", fg="yellow")
         click.secho("\n".join(failed_inference), fg="yellow")
+
+    # --- H-Plot analytics ----------------------------------------------------
+    if hplot and (len(hplot_base_types) != 0 and len(hplot_target_types) != 0):
+        from ..insightlib import hplot_generation
+
+        target_type_list = [c.strip().replace(" ", "_").lower() for c in hplot_target_types]
+        base_type_list = [c.strip().replace(" ", "_").lower() for c in hplot_base_types]
+        norm_classes = [str(c).strip().replace(" ", "_").lower() for c in model_obj.config.class_names]
+        for tp in base_type_list + target_type_list:
+            if tp not in norm_classes:
+                raise click.ClickException(
+                    "--hplot-target-types and --hplot-base-types must be classes of"
+                    " the chosen model."
+                )
+        click.secho("\nRunning H-Plot generation.\n", fg="green")
+        failed_hplot = hplot_generation(
+            wsi_dir=wsi_dir,
+            wsi_paths=slide_paths,
+            results_dir=results_dir,
+            base_type_list=base_type_list,
+            target_type_list=target_type_list,
+            max_neighbor_distance_um=hplot_max_neighbor_distance,
+            hplot_k=hplot_k,
+            hplot_N=hplot_n,
+            hplot_R=hplot_r,
+            hplot_range_max=hplot_range_max,
+            hplot_range_min=hplot_range_min,
+            hplot_samples_with_valid_range_only=hplot_samples_with_valid_range_only,
+            num_workers=1 if num_workers == 0 else num_workers,
+        )
+        if failed_hplot:
+            click.secho(f"\nH-Plot generation failed for {len(failed_hplot)} slides", fg="yellow")
+            click.secho("\n".join(failed_hplot), fg="yellow")
+
+        if geojson:
+            click.echo("\nWriting H-Plot cellular results to GeoJSON files\n")
+            hplot_cell_csvs = sorted(
+                p
+                for p in (results_dir / "hplot-outputs-csv" / "cells").iterdir(files_only=True)
+                if p.suffix == ".csv"
+            )
+            write_geojsons(
+                csvs=hplot_cell_csvs,
+                overlap=overlap,
+                results_dir=results_dir,
+                output_dir="hplot-outputs-geojson",
+                prefix="hplot",
+                num_workers=export_workers,
+                object_type="detection",
+                set_classification=True,
+                annotation_shape="box",
+            )
+        if omecsv:
+            click.echo("\nWriting H-Plot cellular results to OMECSV files\n")
+            hplot_cell_csvs = sorted(
+                p
+                for p in (results_dir / "hplot-outputs-csv" / "cells").iterdir(files_only=True)
+                if p.suffix == ".csv"
+            )
+            write_omecsvs(
+                csvs=hplot_cell_csvs,
+                h5s=[],
+                overlap=overlap,
+                results_dir=results_dir,
+                output_dir="hplot-outputs-omecsv",
+                prefix="hplot",
+                num_workers=export_workers,
+            )
+    elif hplot:
+        raise click.ClickException(
+            "H-Plot requires both --hplot-base-types and --hplot-target-types."
+        )
+
+    # --- CME analytics ---------------------------------------------------------
+    if cme_cellular or cme_annotation:
+        from ..insightlib import cme_generation
+
+        click.secho("\nRunning cme generation.\n", fg="green")
+        cme_generation(
+            wsi_dir=wsi_dir,
+            wsi_paths=slide_paths,
+            results_dir=results_dir,
+            max_edge_len_um=25,
+            max_cell_radius_um=15,
+            k_hops=2,
+            alpha=1.0,
+            use_hoptimus=False,
+            hidden=64,
+            out_dim=32,
+            epochs=300,
+            cme_cellular=cme_cellular,
+            cme_annotation=cme_annotation,
+            cme_clustering_k=cme_clustering_k,
+            cme_clustering_resolutions=cme_clustering_resolutions,
+            cme_soft_mode=cme_soft_mode,
+        )
+        if geojson and cme_cellular:
+            click.echo("\nWriting CME detection cellular results to GeoJSON files\n")
+            cme_cell_csvs = sorted(
+                p
+                for p in (results_dir / "cme-outputs-csv" / "cells").iterdir(files_only=True)
+                if p.suffix == ".csv"
+            )
+            write_geojsons(
+                csvs=cme_cell_csvs,
+                overlap=overlap,
+                results_dir=results_dir,
+                output_dir="cme-outputs-geojson/cells",
+                prefix="cme",
+                num_workers=1 if export_workers == 0 else export_workers,
+                object_type="detection",
+                set_classification=True,
+                annotation_shape="box",
+            )
 
     out = write_run_metadata(results_dir, "infer", model_obj)
     click.echo(f"\nSaved metadata about run to {out}\n")

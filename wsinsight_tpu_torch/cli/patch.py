@@ -8,8 +8,7 @@ Counterpart of wsinsight_tpu/cli/patch.py, with the same options. The port
 plans the tissue grid of classifier models, the halo grid of end2end cell
 models (CellViT, HoVer-Net), StarDist's nuclei for object-based models and
 the QuPath pseudo-models' boxes (TSV or GeoJSON detections, or the tissue
-grid for GeoJSON annotations); Virchow models raise ``click.UsageError``
-(``_options``). Writing the patch files needs h5py.
+grid for GeoJSON annotations). Writing the patch files needs h5py.
 """
 
 from __future__ import annotations
@@ -90,7 +89,6 @@ def patch(
         qupath_geojson_annotation_dir,
     )
     opt.validate_model_args(model_name, config, model_path, qupath_dirs)
-    opt.refuse_unported(ctx.params)
 
     if wsi_dir is None:
         raise click.UsageError("--wsi-dir is required.")
@@ -105,7 +103,6 @@ def patch(
     if not pseudo:
         model_obj = opt.resolve_model(model_name, config, model_path)
         flags = opt.model_flags(model_obj)
-        opt.refuse_unported_model(flags, model_obj.config.architecture)
     opt.require_h5py()
 
     print_system_info()

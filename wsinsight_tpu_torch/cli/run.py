@@ -9,9 +9,7 @@ names forwarded to each stage (reference: cli/run.py:89-155), this command
 derives the forwarded subset from each subcommand's declared click params —
 adding a flag to `patch` or `infer` automatically routes it through `run`.
 
-Counterpart of wsinsight_tpu/cli/run.py. An option either stage does not
-have yet raises ``click.UsageError`` before the patch stage starts.
-``--qupath`` builds the QuPath project after both stages; it needs paquo and
+Counterpart of wsinsight_tpu/cli/run.py. ``--qupath`` builds the QuPath project after both stages; it needs paquo and
 a QuPath install, and raises without them as the JAX command does.
 """
 
@@ -66,7 +64,6 @@ def _invoke_stage(ctx: click.Context, cmd: click.Command, params: dict) -> None:
 @_adopt_params(patch, infer)
 def run(ctx: click.Context, *, qupath: bool, **params) -> None:
     """Run the patch stage then the infer stage in one shot."""
-    opt.refuse_unported(params)  # before either stage runs
     wsi_dir = params.get("wsi_dir")
     if wsi_dir is not None and not params.get("slide_paths"):
         # One directory listing shared by both stages (and by --qupath below).

@@ -49,8 +49,6 @@ class BackendNotAvailable(WsinsightException):
 
 # Queue 1 items of ROADMAP.md that parts of the JAX package wait for in the port.
 _QUEUE_1 = {
-    8: "Virchow's DINOv2 ViT and FoundationViT",
-    9: "the analytics and their CLI",
     10: "scale and tooling",
 }
 

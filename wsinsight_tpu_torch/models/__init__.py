@@ -2,10 +2,9 @@
 
 Counterpart of wsinsight_tpu/models/__init__.py, with the same aliases.
 Ported: every zoo classifier (the ResNet family, VGG16 / vgg16mod and
-InceptionV4 with and without batch norm), CellViT (SAM-B/L/H and ViT-256)
-and HoVer-Net fast. CellViT-Virchow is registered and raises
-``NotImplementedError`` until its encoder is ported (ROADMAP.md Queue 1,
-item 8); H-Optimus-0 (item 8) raises ``UnknownArchitectureError``.
+InceptionV4 with and without batch norm), CellViT (SAM-B/L/H, ViT-256 and
+Virchow), HoVer-Net fast, and the H-Optimus-0 foundation encoder
+(``FoundationViT``, pooled embedding, no head).
 """
 
 from __future__ import annotations
@@ -20,6 +19,7 @@ from .hovernet import hovernet_fast
 from .inception_v4 import inception_v4, inception_v4nobn
 from .resnet import preactresnet34, resnet34, resnet50
 from .vgg import vgg16
+from .vit import HOPTIMUS_VIT_G, FoundationViT
 
 _REGISTRY: dict[str, Callable] = {}
 
@@ -44,6 +44,16 @@ _register(cellvit_sam_b, "cellvit_sam_b", "cellvit-sam-b")
 _register(cellvit_256, "cellvit_256", "cellvit-256")
 _register(cellvit_virchow, "cellvit_virchow", "cellvit-virchow")
 _register(hovernet_fast, "hovernet_fast", "hovernet-fast", "hovernet_fast_pannuke")
+
+
+def _hoptimus(num_classes: int = 0, dtype: torch.dtype = torch.float32):
+    """H-Optimus-0 foundation encoder (pooled cls embedding; no head —
+    num_classes is accepted for the registry's signature)."""
+    del num_classes
+    return FoundationViT(HOPTIMUS_VIT_G, dtype=dtype)
+
+
+_register(_hoptimus, "hoptimus", "hoptimus0", "h_optimus_0")
 
 
 def available_architectures() -> list[str]:

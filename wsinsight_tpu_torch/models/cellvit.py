@@ -1,9 +1,11 @@
-"""CellViT nucleus instance segmentation in torch (SAM and ViT-256 variants).
+"""CellViT nucleus instance segmentation in torch (SAM, ViT-256 and Virchow
+variants).
 
 Counterpart of wsinsight_tpu/models/cellvit.py, with the same module names
 (``encoder``, ``nuclei_binary_map_decoder.decoder3.0.deconv``, ...) so a flax
 param tree carried across by ``flax_params_to_state_dict`` loads with
-``strict=True``. A ViT encoder gives skip features at four depths; three
+``strict=True``. A ViT encoder gives skip features at four depths (a /14
+encoder's, Virchow's, resized to the /16 grid the decoder needs); three
 U-Net-style upsampling branches (nuclei binary map, HV map, nuclei type
 map) decode them with 2x2 transposed convolutions; a linear head classifies
 the tissue from the pooled token.
@@ -20,6 +22,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops.resize import resize_axis
 from .layers import Conv2d, ConvTranspose, EvalBN, compute_in
 from .vit import SAM_VIT_B, SAM_VIT_H, SAM_VIT_L, VIRCHOW_VIT_H, VIT_256, ViTConfig, ViTEncoder
 
@@ -133,6 +136,12 @@ class CellViT(nn.Module):
         """x: (B, H, W, 3) float, already normalised."""
         with compute_in(self.dtype, x):
             _, skips, pooled = self.encoder(x)
+            if self.encoder.config.patch_size != 16:
+                # /14 backbones (Virchow) feed the /16 decoder: each skip grid
+                # is resized to H/16 x W/16 with jax.image.resize's bilinear
+                # kernel, antialiased where it shrinks (18 -> 16 at 256 px)
+                gh, gw = x.shape[1] // 16, x.shape[2] // 16
+                skips = [resize_axis(resize_axis(z, 1, gh), 2, gw) for z in skips]
             z1, z2, z3, z4 = (z.permute(0, 3, 1, 2) for z in skips)
             img = x.permute(0, 3, 1, 2)
             maps = {
@@ -167,8 +176,4 @@ cellvit_sam_b = _cellvit("sam-b")
 cellvit_256 = _cellvit("256")
 
 
-def cellvit_virchow(num_classes: int, halo_size: int = 46, dtype: torch.dtype = torch.float32,
-                    img_size: int = 224) -> CellViT:
-    """CellViT-Virchow-x40-AMP: raises until the Virchow encoder is ported."""
-    return CellViT(variant="virchow", num_nuclei_classes=num_classes, halo_size=halo_size,
-                   dtype=dtype, img_size=img_size)
+cellvit_virchow = _cellvit("virchow")

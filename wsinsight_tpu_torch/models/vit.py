@@ -10,9 +10,12 @@ compute dtype, bfloat16 running under autocast.
 
 On the card every attention core is K2 (``ops.flash_attn.window_attention``);
 on the CPU the same call runs its plain version. The port has no switch for
-it. Virchow's SwiGLU, LayerScale and native-grid interpolation, and the
-H-Optimus ``FoundationViT``, are not ported yet (``ROADMAP.md``, Queue 1,
-item 8).
+it. The DINOv2 lineage (Virchow's ViT-H/14 behind CellViT-Virchow, and the
+H-Optimus-0 ``FoundationViT``) adds a SwiGLU-packed MLP, LayerScale, a
+pos-embed kept at the checkpoint's native grid and resampled to the runtime
+grid with ``jax.image.resize``'s antialiased bilinear kernel, and register
+tokens; its blocks attend globally over the (B, 1, n, C) token row, as
+ViT-256's do.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from torch import nn
 
 from ..ops.flash_attn import window_attention
 from ..ops.resize import resize_axis
-from .layers import LayerNorm
+from .layers import LayerNorm, compute_in
 
 
 @dataclass(frozen=True)
@@ -44,7 +47,10 @@ class ViTConfig:
     # torch leaf naming of the block MLP: SAM exports lin1/lin2, DINO/HIPT
     # (the CellViT-256 encoder lineage) exports fc1/fc2.
     mlp_naming: tuple = ("mlp.lin1", "mlp.lin2")
-    # DINOv2-lineage extensions (Virchow, H-Optimus); not ported yet.
+    # DINOv2-lineage extensions (Virchow, H-Optimus): SwiGLU-packed MLP,
+    # LayerScale (ls1/ls2 gamma), a pos-embed at the checkpoint's native grid
+    # (0 = at the runtime grid), register tokens after cls, and a pos-embed
+    # over the patch grid only (no_embed_class).
     mlp_type: str = "gelu"  # "gelu" | "swiglu"
     layer_scale: bool = False
     native_grid: int = 0
@@ -61,30 +67,31 @@ SAM_VIT_H = ViTConfig(1280, 32, 16, use_rel_pos=True, use_cls_token=False,
 VIT_256 = ViTConfig(384, 12, 6, use_rel_pos=False, use_cls_token=True,
                     window_size=0, extract_layers=(3, 6, 9, 12),
                     mlp_naming=("mlp.fc1", "mlp.fc2"))
-# Virchow (ViT-H/14, DINOv2) and H-Optimus-0 (ViT-g/14 reg4): the configs are
-# kept so the registry's names resolve; building either raises until their
-# SwiGLU / LayerScale / native-grid features are ported.
+# Virchow (ViT-H/14, DINOv2; the encoder of CellViT-Virchow-x40-AMP): SwiGLU
+# hidden int(1280 * 5.3375) = 6832, LayerScale, cls token, global blocks,
+# native grid 16 (224/14), skips every 8 blocks.
 VIRCHOW_VIT_H = ViTConfig(1280, 32, 16, patch_size=14, mlp_ratio=5.3375,
                           window_size=0, use_rel_pos=False, use_cls_token=True,
                           extract_layers=(8, 16, 24, 32),
                           mlp_naming=("mlp.fc1", "mlp.fc2"),
                           mlp_type="swiglu", layer_scale=True, native_grid=16)
+# H-Optimus-0 (timm vit_giant_patch14_reg4_dinov2): SwiGLU hidden 4096,
+# LayerScale, 4 register tokens, pos-embed over the patch grid only, 224 px.
 HOPTIMUS_VIT_G = ViTConfig(1536, 40, 24, patch_size=14, mlp_ratio=4096 / 1536,
                            window_size=0, use_rel_pos=False, use_cls_token=True,
                            mlp_naming=("mlp.fc1", "mlp.fc2"),
                            mlp_type="swiglu", layer_scale=True, native_grid=16,
                            reg_tokens=4, no_embed_class=True)
 
-_UNPORTED = "is not yet ported to torch (ROADMAP.md, Queue 1, item 8)"
-
-
-def _refuse_unported(cfg: ViTConfig) -> None:
-    if cfg.mlp_type != "gelu" or cfg.layer_scale or cfg.native_grid or cfg.reg_tokens \
-            or cfg.no_embed_class:
-        raise NotImplementedError(
-            f"the DINOv2 ViT of Virchow / H-Optimus (SwiGLU, LayerScale,"
-            f" native-grid pos-embed, register tokens) {_UNPORTED}"
-        )
+def resample_pos_grid(pos_grid: torch.Tensor, ng: int, gh: int, gw: int) -> torch.Tensor:
+    """(1, ng*ng, C) pos-embed grid -> (1, gh*gw, C): ``jax.image.resize``'s
+    bilinear kernel (antialiased when it shrinks), the DINOv2 convention for
+    a runtime grid other than the checkpoint's. Float32."""
+    if (gh, gw) == (ng, ng):
+        return pos_grid
+    c = pos_grid.shape[-1]
+    grid = resize_axis(resize_axis(pos_grid.reshape(1, ng, ng, c), 1, gh), 2, gw)
+    return grid.reshape(1, gh * gw, c)
 
 
 def _rel_index(q_size: int, k_size: int) -> np.ndarray:
@@ -154,18 +161,38 @@ class Attention(nn.Module):
 
 
 class Mlp(nn.Module):
-    """Block MLP: Linear -> exact GELU -> Linear, under the checkpoint's
-    leaf names (``lin1``/``lin2`` or ``fc1``/``fc2``)."""
+    """Block MLP under the checkpoint's leaf names (``lin1``/``lin2`` or
+    ``fc1``/``fc2``): Linear -> exact GELU -> Linear, or with ``swiglu``
+    the JAX package's packed SwiGLU: one first Linear to 2*hidden, the gate
+    its FIRST half, ``silu(y1) * y2`` -> Linear."""
 
-    def __init__(self, dim: int, hidden: int, names: tuple[str, str]):
+    def __init__(self, dim: int, hidden: int, names: tuple[str, str], swiglu: bool = False):
         super().__init__()
         self.names = names
-        setattr(self, names[0], nn.Linear(dim, hidden))
+        self.swiglu = swiglu
+        setattr(self, names[0], nn.Linear(dim, 2 * hidden if swiglu else hidden))
         setattr(self, names[1], nn.Linear(hidden, dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.gelu(getattr(self, self.names[0])(x))
-        return getattr(self, self.names[1])(x)
+        y = getattr(self, self.names[0])(x)
+        if self.swiglu:
+            y1, y2 = y.chunk(2, dim=-1)
+            y = F.silu(y1) * y2
+        else:
+            y = F.gelu(y)
+        return getattr(self, self.names[1])(y)
+
+
+class LayerScale(nn.Module):
+    """DINOv2 LayerScale: a per-channel gain, float32, applied in the
+    branch's dtype (flax casts it to the activations' dtype)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.full((dim,), 1e-5))  # flax's init
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.gamma.to(x.dtype)
 
 
 class Block(nn.Module):
@@ -173,7 +200,8 @@ class Block(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, window_size: int,
                  use_rel_pos: bool, mlp_naming: tuple = ("mlp.lin1", "mlp.lin2"),
-                 input_size: tuple[int, int] = (16, 16)):
+                 input_size: tuple[int, int] = (16, 16), mlp_type: str = "gelu",
+                 layer_scale: bool = False):
         super().__init__()
         prefix = {n.split(".")[0] for n in mlp_naming}
         if prefix != {"mlp"}:
@@ -181,11 +209,20 @@ class Block(nn.Module):
         self.norm1 = LayerNorm(dim)
         self.attn = Attention(dim, num_heads, use_rel_pos, window_size, input_size)
         self.norm2 = LayerNorm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), tuple(n.split(".", 1)[1] for n in mlp_naming))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), tuple(n.split(".", 1)[1] for n in mlp_naming),
+                       swiglu=mlp_type == "swiglu")
+        self.ls1 = LayerScale(dim) if layer_scale else nn.Identity()
+        self.ls2 = LayerScale(dim) if layer_scale else nn.Identity()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+        x = x + self.ls1(self.attn(self.norm1(x)))
+        return x + self.ls2(self.mlp(self.norm2(x)))
+
+
+def _global_block(cfg: ViTConfig, n_tokens: int) -> Block:
+    """A block of the cls-token lineage: global attention over the token row."""
+    return Block(cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio, 0, False, cfg.mlp_naming,
+                 (1, n_tokens), cfg.mlp_type, cfg.layer_scale)
 
 
 class PatchEmbed(nn.Module):
@@ -198,31 +235,33 @@ class ViTEncoder(nn.Module):
     """ViT backbone emitting skip features at config.extract_layers.
 
     ``forward`` takes (B, H, W, 3) and returns (final grid, [skips], pooled),
-    each grid (B, H/16, W/16, C), as the JAX encoder does. ``img_size`` is
-    the input side the model runs at (it fixes pos_embed and the global
-    blocks' rel-pos tables).
+    each grid (B, H/p, W/p, C) for patch side p, as the JAX encoder does.
+    ``img_size`` is the input side the model runs at (it fixes pos_embed,
+    unless the config keeps it at a native grid, and the global blocks'
+    rel-pos tables).
     """
 
     def __init__(self, config: ViTConfig, img_size: int = 256):
         super().__init__()
-        _refuse_unported(config)
         cfg = self.config = config
         g = img_size // cfg.patch_size
         self.patch_embed = PatchEmbed(cfg.patch_size, cfg.embed_dim)
         if cfg.use_cls_token:
+            ng = cfg.native_grid or g
             self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.embed_dim))
-            self.pos_embed = nn.Parameter(torch.zeros(1, g * g + 1, cfg.embed_dim))
+            self.pos_embed = nn.Parameter(torch.zeros(1, ng * ng + 1, cfg.embed_dim))
         else:
             self.pos_embed = nn.Parameter(torch.zeros(1, g, g, cfg.embed_dim))
         self.blocks = nn.ModuleList()
         for i in range(cfg.depth):
             if cfg.use_cls_token:  # global attention over the cls + grid tokens
-                window, rel, size = 0, False, (1, g * g + 1)
-            else:
-                global_block = cfg.window_size == 0 or i in cfg.global_attn_indexes
-                window, rel, size = (0 if global_block else cfg.window_size), cfg.use_rel_pos, (g, g)
-            self.blocks.append(Block(cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio, window, rel,
-                                     cfg.mlp_naming, size))
+                self.blocks.append(_global_block(cfg, g * g + 1))
+                continue
+            global_block = cfg.window_size == 0 or i in cfg.global_attn_indexes
+            self.blocks.append(Block(
+                cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio,
+                0 if global_block else cfg.window_size, cfg.use_rel_pos, cfg.mlp_naming,
+                (g, g), cfg.mlp_type, cfg.layer_scale))
         if cfg.use_cls_token:
             self.norm = LayerNorm(cfg.embed_dim)
 
@@ -235,7 +274,11 @@ class ViTEncoder(nn.Module):
             # float32 cls + (autocast) patch tokens promote to float32, as in flax
             tokens = grid.reshape(b, gh * gw, cfg.embed_dim).float()
             tokens = torch.cat([self.cls_token.expand(b, -1, -1), tokens], 1)
-            tokens = (tokens + self.pos_embed)[:, None]  # (B, 1, n, C): one row of tokens
+            pos = self.pos_embed
+            if cfg.native_grid:
+                pos_grid = resample_pos_grid(pos[:, 1:], cfg.native_grid, gh, gw)
+                pos = torch.cat([pos[:, :1], pos_grid], 1)
+            tokens = (tokens + pos)[:, None]  # (B, 1, n, C): one row of tokens
         else:
             grid = grid + self.pos_embed
 
@@ -257,8 +300,54 @@ class ViTEncoder(nn.Module):
 
 
 class FoundationViT(nn.Module):
-    """The H-Optimus-0 pooled-embedding ViT; not ported yet."""
+    """Pooled-embedding ViT of the foundation encoders (H-Optimus-0 layout).
 
-    def __init__(self, config: ViTConfig, img_size: int = 224):
+    The timm vit_*_reg4_dinov2 graph: patch embed -> pos_embed added to the
+    patch tokens only (``no_embed_class``; else to all) -> [cls, reg x N,
+    patches] -> global blocks -> final LayerNorm -> the cls token.
+    ``forward`` takes (B, H, W, 3) normalised images and returns (B, C)
+    float32. ``dtype`` is the compute dtype: under bfloat16 every token,
+    the residual stream too, is bfloat16, as in the flax model.
+    ``img_size`` fixes pos_embed only where the config has no native grid.
+    """
+
+    def __init__(self, config: ViTConfig, img_size: int = 224,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        raise NotImplementedError(f"FoundationViT (H-Optimus-0) {_UNPORTED}")
+        cfg = self.config = config
+        self.dtype = dtype
+        ng = cfg.native_grid or img_size // cfg.patch_size
+        self.n_prefix = 0 if cfg.no_embed_class else 1
+        c = cfg.embed_dim
+        self.patch_embed = PatchEmbed(cfg.patch_size, c)
+        self.pos_embed = nn.Parameter(torch.zeros(1, ng * ng + self.n_prefix, c))
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, c))
+        if cfg.reg_tokens:
+            self.reg_token = nn.Parameter(torch.zeros(1, cfg.reg_tokens, c))
+        n_tokens = 1 + cfg.reg_tokens + (img_size // cfg.patch_size) ** 2
+        self.blocks = nn.ModuleList(_global_block(cfg, n_tokens) for _ in range(cfg.depth))
+        self.norm = LayerNorm(c)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        p, c = cfg.patch_size, cfg.embed_dim
+        b, h, w, _ = x.shape
+        gh, gw = h // p, w // p
+        ng = round((self.pos_embed.shape[1] - self.n_prefix) ** 0.5)
+        with compute_in(self.dtype, x):
+            tokens = self.patch_embed.proj(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            tokens = tokens.reshape(b, gh * gw, c)
+            dt = tokens.dtype
+            pos_grid = resample_pos_grid(self.pos_embed[:, self.n_prefix:], ng, gh, gw)
+            prefix = [self.cls_token.to(dt).expand(b, -1, -1)]
+            if cfg.reg_tokens:
+                prefix.append(self.reg_token.to(dt).expand(b, -1, -1))
+            if cfg.no_embed_class:
+                tokens = torch.cat([*prefix, tokens + pos_grid.to(dt)], 1)
+            else:
+                pos = torch.cat([self.pos_embed[:, :self.n_prefix], pos_grid], 1)
+                tokens = torch.cat([*prefix, tokens], 1) + pos.to(dt)
+            tokens = tokens[:, None]  # (B, 1, n, C): one row of tokens
+            for blk in self.blocks:
+                tokens = blk(tokens)
+            return self.norm(tokens[:, 0, 0]).float()

@@ -1,9 +1,9 @@
 """The port's host library (C++, loaded with ctypes): tile decode, LZW, the
-PIL-exact uint8 resize, the YUV 4:2:0 packer and the watershed.
+PIL-exact uint8 resize, the YUV 4:2:0 packer, the watershed and Leiden.
 
 Counterpart of wsinsight_tpu/native/__init__.py for ``tiledec.cpp``,
-``lzw.cpp``, ``resize.cpp``, ``yuv.cpp`` and ``watershed.cpp`` (copies of the
-JAX package's sources). ``ops.native_build`` compiles them at first use into
+``lzw.cpp``, ``resize.cpp``, ``yuv.cpp``, ``watershed.cpp`` and
+``leiden.cpp`` (copies of the JAX package's sources). ``ops.native_build`` compiles them at first use into
 ``build/wsinsight_tpu_torch/``. Unlike the JAX package, a library that does
 not build or load raises (with the compiler's or loader's message): nothing
 here returns None for a missing library. Functions still return None for an
@@ -52,6 +52,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     f32p = ctypes.POINTER(ctypes.c_float)
     lib.watershed_f32.argtypes = [f32p, i32p, u8p, i32, i32, i32p]
     lib.watershed_f32.restype = None
+    f64p = ctypes.POINTER(ctypes.c_double)
+    lib.leiden_cluster.argtypes = [i64p, i64p, i64, i64, ctypes.c_double, ctypes.c_uint64,
+                                   i32p, f64p]
+    lib.leiden_cluster.restype = i64
     return lib
 
 
@@ -338,3 +342,33 @@ class NativeRegionReader:
             self.close()
         except Exception:
             pass
+
+
+def leiden_native(
+    edges: np.ndarray, n_nodes: int, resolution: float, seed: int
+) -> tuple[np.ndarray, float]:
+    """Leiden clustering of ``leiden.cpp`` (RBConfiguration quality at
+    ``resolution``). edges: (E, 2) int array of undirected edges (duplicates
+    and self-loops ignored). Returns (labels int32[n_nodes], contiguous from
+    0; the gamma=1 modularity of the partition). The call releases the GIL,
+    so sweeps fan out across threads. Raises ValueError where the library
+    refuses the input."""
+    lib = get_lib()
+    edges = np.ascontiguousarray(np.asarray(edges, np.int64).reshape(-1, 2))
+    src = np.ascontiguousarray(edges[:, 0])
+    dst = np.ascontiguousarray(edges[:, 1])
+    labels = np.zeros(int(n_nodes), np.int32)
+    mod = ctypes.c_double(0.0)
+    n = lib.leiden_cluster(
+        _ptr(src, ctypes.c_int64),
+        _ptr(dst, ctypes.c_int64),
+        len(edges),
+        int(n_nodes),
+        float(resolution),
+        int(seed) & 0xFFFFFFFFFFFFFFFF,
+        _ptr(labels, ctypes.c_int32),
+        ctypes.byref(mod),
+    )
+    if n < 0:
+        raise ValueError(f"leiden_cluster refused {len(edges)} edges over {n_nodes} nodes")
+    return labels, float(mod.value)

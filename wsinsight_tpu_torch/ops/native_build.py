@@ -1,12 +1,12 @@
 """Build and load the port's host library, ``native/*.cpp``.
 
-The five sources (``tiledec``, ``lzw``, ``resize``, ``yuv``, ``watershed``)
-compile with one ``g++`` into one shared library with a plain C interface,
+The six sources (``tiledec``, ``lzw``, ``resize``, ``yuv``, ``watershed``,
+``leiden``) compile with one ``g++`` into one shared library with a plain C interface,
 loaded with ``ctypes``:
 
     g++ -O3 -march=native -fPIC -std=c++17 -Wall -shared
         -o build/wsinsight_tpu_torch/libwsinsight_native-<hash>.so
-        tiledec.cpp lzw.cpp resize.cpp yuv.cpp watershed.cpp -ljpeg -lz
+        tiledec.cpp lzw.cpp resize.cpp yuv.cpp watershed.cpp leiden.cpp -ljpeg -lz
 
 It is named and built as ``cuda_build`` builds the kernels
 (``hashed_library_path``, ``compile_libraries``): at first use, never at
@@ -31,7 +31,8 @@ from pathlib import Path
 from . import cuda_build
 
 NATIVE_DIR = Path(__file__).resolve().parents[1] / "native"
-NATIVE_SOURCES = ("tiledec.cpp", "lzw.cpp", "resize.cpp", "yuv.cpp", "watershed.cpp")
+NATIVE_SOURCES = ("tiledec.cpp", "lzw.cpp", "resize.cpp", "yuv.cpp", "watershed.cpp",
+                  "leiden.cpp")
 GXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall", "-shared")
 NO_JPEG_FLAG = "-DWSI_NO_JPEG"
 _JPEG_PROBE = "#include <cstdio>\n#include <jpeglib.h>\nint main() { jpeg_decompress_struct c; jpeg_create_decompress(&c); return 0; }\n"

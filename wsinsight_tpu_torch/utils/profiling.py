@@ -9,7 +9,7 @@ the rebuild adds:
   writes a profiler trace when WSINSIGHT_PROFILE=<dir> is set; the port
   does not yet, and refuses the variable rather than ignore it,
 * `hot_stage` / `hot_stage_report` — wall seconds per hot-loop stage (the
-  HV post-processing tail, StarDist's plan), accumulated when
+  HV post-processing tail, StarDist's plan, CME's phases), accumulated when
   WSINSIGHT_STREAM_PROFILE=1.
 """
 
@@ -40,8 +40,11 @@ def stage_timings() -> dict[str, float]:
 
 
 # -- fine-grained hot-loop stage profiling (WSINSIGHT_STREAM_PROFILE=1) ------
-# Used by the HV post-processing tail and StarDist's plan (read, normalize,
-# copy in, forward, copy out, candidates, NMS): one perf_counter pair per stage call
+# Used by the HV post-processing tail, StarDist's plan (read, normalize,
+# copy in, forward, copy out, candidates, NMS) and CME's phases (graph build,
+# foundation block, DGI, full-graph embedding, Leiden sweep, Voronoi merge;
+# each returns host arrays, so its time includes the card's work):
+# one perf_counter pair per stage call
 # when enabled, zero work when not (the flag is read once at import).
 # Thread-safe: finalize's workers run the tail concurrently.
 

@@ -248,30 +248,23 @@ def _init_normal(p: torch.Tensor, gen: torch.Generator, std: float) -> None:
     p.copy_(torch.randn(p.shape, generator=gen) * std)
 
 
-def randomize_cell_model(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
-    """Seeded random weights for a cell model (CellViT, HoVer-Net), in place,
-    on the CPU.
-
-    Convolutions are normal with variance 2/fan-in (HoVer-Net's 1/fan-in:
-    its residual sums, without working batch norm, grow with each unit's
-    variance, and He's 2 takes its decoders' features to the hundreds),
-    transposed convolutions 1/in-channels, linear layers 1/fan-in;
-    biases N(0, 0.1^2), so a padded
-    window's bias-filled tokens differ from zeros; pos_embed and cls_token
-    N(0, 0.02^2) (flax's init) and the rel-pos tables N(0, 0.1^2), so rel-pos
-    moves the scores; layer and batch norms keep their identity. Then each
-    decoder branch's last conv (CellViT's ``decoder0_header[2]``, HoVer-Net's
-    ``decoder.{np,hv,tp}.u0.conv``) is scaled to give unit-scale maps on a
-    seeded noise batch, run in float32 whatever the model's compute dtype:
-    logits that do not saturate keep the model's numerics visible in
-    comparisons. CellViT's probe takes the whole maps (halo 0); HoVer-Net's
-    runs at the model's own halo, the least it has. The same seed gives the
-    same weights on every host."""
+def randomize_weights(model: torch.nn.Module, gen: torch.Generator | int = 0,
+                      conv_gain: float = 1.0) -> torch.nn.Module:
+    """Seeded random weights for any model, in place, on the CPU: linear
+    layers normal with variance 1/fan-in, convolutions ``conv_gain``/fan-in,
+    transposed convolutions 1/in-channels; biases N(0, 0.1^2), so a padded
+    window's bias-filled tokens differ from zeros; pos_embed, cls and
+    register tokens N(0, 0.02^2) (flax's init) and the rel-pos tables
+    N(0, 0.1^2), so rel-pos moves the scores; LayerScale gains (DINOv2's
+    ``ls1``/``ls2.gamma``) U[0.1, 1], where flax's 1e-5 would leave every
+    block near the identity and a bf16 comparison would test little; layer
+    and batch norms keep their identity. ``gen`` is a seed or a generator
+    that goes on drawing after this. The same seed gives the same weights
+    on every host."""
     from ..models.layers import EvalBN
 
-    gen = torch.Generator().manual_seed(seed)
-    cellvit = hasattr(model, "nuclei_binary_map_decoder")
-    conv_gain = 2.0 if cellvit else 1.0
+    if not isinstance(gen, torch.Generator):
+        gen = torch.Generator().manual_seed(gen)
     with torch.no_grad():
         for name, p in model.named_parameters():
             mod_name, _, leaf = name.rpartition(".")
@@ -285,8 +278,32 @@ def randomize_cell_model(model: torch.nn.Module, seed: int = 0) -> torch.nn.Modu
             elif leaf == "weight":
                 gain = conv_gain if p.dim() == 4 else 1.0
                 _init_normal(p, gen, (gain / p[0].numel()) ** 0.5)
-            else:  # pos_embed, cls_token, rel_pos_h / rel_pos_w
+            elif leaf == "gamma":  # LayerScale
+                p.copy_(0.1 + 0.9 * torch.rand(p.shape, generator=gen))
+            else:  # pos_embed, cls_token, reg_token, rel_pos_h / rel_pos_w
                 _init_normal(p, gen, 0.1 if leaf.startswith("rel_pos") else 0.02)
+    return model
+
+
+def randomize_cell_model(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
+    """Seeded random weights for a cell model (CellViT, HoVer-Net), in place,
+    on the CPU.
+
+    ``randomize_weights`` with convolutions at variance 2/fan-in (HoVer-Net's
+    1/fan-in: its residual sums, without working batch norm, grow with each
+    unit's variance, and He's 2 takes its decoders' features to the
+    hundreds). Then each
+    decoder branch's last conv (CellViT's ``decoder0_header[2]``, HoVer-Net's
+    ``decoder.{np,hv,tp}.u0.conv``) is scaled to give unit-scale maps on a
+    seeded noise batch, run in float32 whatever the model's compute dtype:
+    logits that do not saturate keep the model's numerics visible in
+    comparisons. CellViT's probe takes the whole maps (halo 0); HoVer-Net's
+    runs at the model's own halo, the least it has. The same seed gives the
+    same weights on every host."""
+    gen = torch.Generator().manual_seed(seed)
+    cellvit = hasattr(model, "nuclei_binary_map_decoder")
+    randomize_weights(model, gen, conv_gain=2.0 if cellvit else 1.0)
+    with torch.no_grad():
         if cellvit:
             heads = {
                 "nuclei_binary_map": model.nuclei_binary_map_decoder.decoder0_header[2],
