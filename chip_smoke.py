@@ -11,7 +11,8 @@ cell path with CellViT-SAM-H-x40 (ViT-H, 32 blocks, windowed and global
 rel-pos attention; also over a whole slide to its nuclei), CellViT-256-x40
 (ViT-S/16 with a cls token) and hovernet_fast_pannuke (HoVer-Net fast);
 then StarDist's object-based patch stage and a classifier on its nuclei;
-CellViT-Virchow-x40-AMP (Virchow's DINOv2 ViT-H/14); and the analytics
+CellViT-Virchow-x40-AMP (Virchow's DINOv2 ViT-H/14); the banded streaming
+cell engine over the nuclei slide; and the analytics
 (H-Plot, CME with its DGI training and the Leiden sweep, the H-Optimus-0
 foundation branch). Holds every hand-written kernel against its plain
 torch version. Phases; any failure exits non-zero and prints no result
@@ -220,7 +221,41 @@ line:
       WKT polygons, the H-Plot layer tables finite and its metrics finite
       but for the enrichment indices the JAX package leaves undefined,
       K1 launches 0.
-
+  (s) (after (l), before (o)) the banded streaming cell engine
+      (engine/stream_cells.py, run_cell_inference's default) over (l)'s
+      slide and plan; first streaming_fits under the default budget at
+      (l)'s, (j)'s and a 100,000 px wide slide's width, and the widest that
+      streams; (1) the drawn nuclei's own maps, cut per patch into
+      the model's logits (log(p + 1e-4)) by a stand-in engine, through
+      stream_slide -> finalize on the card and through stitch_slide ->
+      finalize (host-canvas), in the probed basin mode and with
+      WSINSIGHT_STREAM_BASIN=host: seconds and instances; checks: the same
+      instance set (boxes and polygons identical, probabilities within
+      5e-3) and the host-canvas count within 2% of (l)'s on the painted
+      canvas; then with the per-band id cap forced to 2,
+      StreamingCapacityError on the main thread and no flusher left alive;
+      (2) (g)'s bf16 SAM-H with its NP head reading the drawn nuclei (a
+      discriminant of decoder0's features fit on a probe of 64 of the
+      plan's patches, sam_heads_from_drawn) and its HV head zeroed (the
+      seeded heads find one instance), through
+      the host-canvas engine (run_cell_slide) and then through
+      PatchBatchSource.from_coords (order_by_y) -> stream_slide -> finalize:
+      each engine's patches/s with everything included, its instances, the
+      device-busy share and the main thread's split; for streaming also the
+      rate over the loop, the engine's hot_stage seconds, each band's flush
+      on the host clock against the loop's end, the bands' bytes, peak
+      device memory, host RSS growth, the link probe and the basin it
+      picked; checks: streaming_fits at this geometry, no
+      StreamingCapacityError, each engine at least a tenth of the drawn
+      nuclei's count in instances, K2 launches 32 per batch and K1 0 in
+      both, the hot stages timed, (l)'s CSV checks (rows summing to 1
+      within K half-ulps of bf16); reported, not checked: the streaming
+      instances' boxes against host-canvas's; (3) the whole plan again
+      under WSINSIGHT_PROFILE (utils.profiling.maybe_trace): the trace's
+      CUDA kernels per stream, the share of the flushers' kernel time that
+      overlaps the forward stream's and that ran before its last kernel;
+      checks: one trace with kernel events, K2's among them, and K2
+      launches 32 per batch.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}, printed exactly when every phase passed, and
 then the script exits 0; otherwise it exits 1 (also where CUDA is missing or
@@ -1133,7 +1168,504 @@ def cell_slide_phase(check, kernels, card, rng, engines, cell_slide) -> dict:
           " occur in bf16")
     stats["bf16_vs_parity"] = {"bbox_share": share}
     tmp.cleanup()
-    return {"stats": stats, "k2_launches": k2_launches}
+    # (s) streams the same plan and the drawn nuclei's maps
+    return {"stats": stats, "k2_launches": k2_launches, "coords": plan.coords, "patch_size": ps,
+            "dims": dims, "workers": workers, "stitch_workers": stitch_workers,
+            "results": results, "drawn": drawn, "drawn_maps": (st.np_map, st.hv_map, st.tp_map)}
+
+
+class PlanBatches:
+    """A plan's patches in slide-row order, as PatchBatchSource yields them
+    with order_by_y, but carrying each patch's index in the plan where the
+    pixels would be (for DrawnEngine)."""
+
+    def __init__(self, coords, patch_size: int, batch: int):
+        self.coords, self.patch_size, self.batch = coords, patch_size, batch
+        self.order = np.lexsort((coords[:, 0], coords[:, 1]))
+        self.num_batches = -(-len(coords) // batch)
+
+    def __iter__(self):
+        from wsinsight_tpu_torch.engine.data import Batch
+
+        ps = self.patch_size
+        for i0 in range(0, len(self.order), self.batch):
+            idx = self.order[i0:i0 + self.batch]
+            xy = self.coords[idx].astype(np.int64)
+            yield Batch(images=idx, coords=np.concatenate([xy, np.full_like(xy, ps)], axis=1),
+                        n_valid=len(idx))
+
+
+class DrawnEngine:
+    """A stand-in for a CellEngine (config, device, put, dispatch) whose
+    forward returns, for each patch of a PlanBatches batch, the drawn
+    nuclei's own maps over the patch's output window as the model's
+    channel-first logits: NP and TP as log(p + 1e-4), HV as drawn."""
+
+    def __init__(self, engine, maps, coords, dev):
+        self.config, self.device, self.coords = engine.config, dev, coords
+        self.n_devices = 1
+        cfg = engine.config
+        self.s = cfg.patch_size_pixels - 2 * cfg.halo_size_pixels  # model mpp = slide mpp
+        self.shift = cfg.halo_size_pixels + self.s  # the maps are padded by s all round
+        pad = ((self.s, self.s), (self.s, self.s))
+        self.maps = [np.pad(m, pad + ((0, 0),) * (m.ndim - 2)) for m in maps]
+
+    def pad_batch(self, n: int) -> int:
+        return n
+
+    def put(self, idx):
+        return idx
+
+    def dispatch(self, idx) -> dict:
+        import torch
+
+        s = self.s
+        xy = self.coords[idx].astype(np.int64) + self.shift
+        np_p, hv, tp = (np.stack([m[y:y + s, x:x + s] for x, y in xy]) for m in self.maps)
+        eps = 1e-4
+        np_logits = np.stack([np.log1p(-np_p + eps), np.log(np_p + eps)], axis=1)
+        out = {"np": np_logits, "hv": hv.transpose(0, 3, 1, 2),
+               "tp": np.log(tp + eps).transpose(0, 3, 1, 2)}
+        return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(self.device)
+                for k, v in out.items()}
+
+
+def sam_heads_from_drawn(engine, drawn, path, coords, ps, workers) -> dict:
+    """Make the SAM-H engine's NP head read the drawn nuclei, and zero its HV
+    head. The seeded heads find one instance on (l)'s slide, which would
+    leave the engines' finalize no per-instance work; a projection of the
+    NP head's own input features, as (o) sets HoVer-Net's, agrees with the
+    drawn nuclei on fewer pixels than "all background" does here. So the
+    head's first two blocks carry one projection of ``decoder0``'s features
+    (two convolutions over the patch's pixels) instead: Fisher's
+    discriminant between the drawn nuclei and the rest on a probe of 2
+    batches of the plan's patches, spread over it, scaled to a spread of 4
+    and cut at the drawn nuclei's share of the probe, as +/- channels
+    through the ReLUs; the last 1x1 takes their difference as the
+    foreground logit (background 0). Every layer still runs. The HV head
+    is zeroed, as in (o) and the CPU tests' end-to-end runs: a zero field
+    leaves each NP component one instance. ``drawn`` is (s)(1)'s
+    DrawnEngine (the drawn maps, cut per patch)."""
+    import torch
+
+    from wsinsight_tpu_torch.engine.data import PatchBatchSource
+
+    dec = engine.model.nuclei_binary_map_decoder
+    step = max(1, len(coords) // (2 * CELL_BATCH))
+    idx = np.arange(0, len(coords), step)[:2 * CELL_BATCH]
+    h, s = engine.config.halo_size_pixels, drawn.s
+    got, feats, masks = [], [], []
+    hook = dec.decoder0.register_forward_hook(lambda m, i, o: got.append(
+        o[:, :, h:h + s, h:h + s].float().permute(0, 2, 3, 1).reshape(len(o), -1, o.shape[1])))
+    src = PatchBatchSource.from_coords(path, coords[idx], ps, CELL_BATCH, num_threads=workers,
+                                       decode_scale=1)
+    try:
+        for batch in src:
+            n = batch.n_valid
+            got.clear()
+            engine.run_batch(batch.images)
+            feats.append(got[0][:n].reshape(-1, got[0].shape[-1]))
+            xy = batch.coords[:n, :2].astype(np.int64) + drawn.shift
+            masks.append(np.stack([drawn.maps[0][y:y + s, x:x + s] >= 0.5 for x, y in xy]))
+    finally:
+        hook.remove()
+        src.close()
+    mask = np.concatenate(masks).ravel()
+    share = float(mask.mean())
+    with torch.inference_mode():
+        f = torch.cat(feats).double()
+        inside = torch.from_numpy(mask).to(f.device)
+        cov = torch.cov(f[inside].T) + torch.cov(f[~inside].T)
+        ridge = 1e-3 * cov.diagonal().mean() * torch.eye(len(cov), dtype=f.dtype, device=f.device)
+        w = torch.linalg.solve(cov + ridge, f[inside].mean(0) - f[~inside].mean(0))
+        proj = (f @ w).cpu().numpy()
+    del f, feats
+    scale = 4.0 / float(proj.std())
+    thr = float(np.quantile(proj, 1 - share))
+    first, second, last = dec.decoder0_header
+    hv = engine.model.hv_map_decoder.decoder0_header[-1]
+    with torch.no_grad():
+        for blk in (first, second):
+            blk.conv.weight.zero_()
+            blk.conv.bias.zero_()
+            blk.bn.running_mean.zero_()
+            blk.bn.running_var.fill_(1.0)
+            blk.bn.weight.fill_(float(np.sqrt(1.0 + blk.bn.eps)))
+            blk.bn.bias.zero_()
+        wk = (w * scale).to(first.conv.weight)
+        first.conv.weight[0, :len(wk), 1, 1] = wk
+        first.conv.weight[1, :len(wk), 1, 1] = -wk
+        first.conv.bias[0] = -thr * scale
+        first.conv.bias[1] = thr * scale
+        second.conv.weight[0, 0, 1, 1] = 1.0
+        second.conv.weight[1, 1, 1, 1] = 1.0
+        last.weight.zero_()
+        last.bias.zero_()
+        last.weight[1, 0, 0, 0] = 1.0
+        last.weight[1, 1, 0, 0] = -1.0
+        hv.weight.zero_()
+        hv.bias.zero_()
+    return {"probe_patches": len(idx), "foreground_share": share, "logit_scale": scale,
+            "agrees_with_drawn_on_probe": float(np.mean((proj > thr) == mask))}
+
+
+def flush_overlap(flushes, loop_end: float) -> dict:
+    """The flushers' host seconds (``flushes``: (band, start, end) on the
+    host clock, one per _flush_band) and the share of them spent before the
+    batch loop ended at ``loop_end``: the finalize work that overlapped the
+    forwards."""
+    total = sum(e - s for _, s, e in flushes)
+    within = sum(max(0.0, min(e, loop_end) - s) for _, s, e in flushes)
+    return {"flush_s": total, "flush_s_during_loop": within,
+            "share_during_loop": within / total if total else float("nan"),
+            "bands": {int(b): {"start_s": s - loop_end, "end_s": e - loop_end}
+                      for b, s, e in sorted(flushes)}}
+
+
+def kernel_streams(trace_path: str) -> dict:
+    """CUDA kernels of a torch.profiler Chrome trace, per stream: the
+    forward's stream is the one K2 ran on; the others are the flushers'.
+    Returns counts, the share of the flushers' kernel time that overlaps the
+    forward stream's busy time, and the share that ran before the forward
+    stream's last kernel ended (during the batch loop)."""
+    with open(trace_path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("cat") == "kernel" and "dur" in e]
+    by_stream: dict = {}
+    for e in events:
+        by_stream.setdefault(e.get("args", {}).get("stream"), []).append(e)
+    main = next((st for st, evs in by_stream.items()
+                 if any("window_attention_kernel" in e["name"] for e in evs)), None)
+    busy = sorted((e["ts"], e["ts"] + e["dur"]) for e in by_stream.get(main, []))
+    merged: list = []
+    for a, b in busy:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    starts = np.array([m[0] for m in merged]) if merged else np.zeros(0)
+    fwd_end = merged[-1][1] if merged else 0.0
+    flush_us = overlap_us = before_us = 0.0
+    for st, evs in by_stream.items():
+        if st == main:
+            continue
+        for e in evs:
+            a, b = e["ts"], e["ts"] + e["dur"]
+            flush_us += b - a
+            before_us += max(0.0, min(b, fwd_end) - a)
+            i = int(np.searchsorted(starts, b)) - 1
+            while i >= 0 and merged[i][1] > a:
+                overlap_us += min(b, merged[i][1]) - max(a, merged[i][0])
+                i -= 1
+    nan = float("nan")
+    return {"kernels": len(events), "streams": {str(k): len(v) for k, v in by_stream.items()},
+            "forward_stream": main, "flusher_kernel_ms": flush_us / 1e3,
+            "flusher_overlap": overlap_us / flush_us if flush_us else nan,
+            "flusher_before_forward_end": before_us / flush_us if flush_us else nan}
+
+
+def stream_phase(check, kernels, card, engines, cell_slide, l_out) -> dict:
+    """(s): the banded streaming engine (engine/stream_cells.py) over (l)'s
+    slide, plan and bf16 SAM-H engine: (1) the drawn nuclei's maps through
+    it and through the host-canvas engine, (2) the real forward through it,
+    (3) one run under WSINSIGHT_PROFILE."""
+    import psutil
+    import torch
+
+    import wsinsight_tpu_torch.engine.stream_cells as sc
+    from wsinsight_tpu_torch.engine.cells import make_slide_stitcher, stitch_slide
+    from wsinsight_tpu_torch.engine.data import PatchBatchSource
+    from wsinsight_tpu_torch.utils.profiling import hot_stage_report, maybe_trace
+
+    t_phase = time.perf_counter()
+    path = cell_slide[0]
+    coords, ps, dims = l_out["coords"], l_out["patch_size"], l_out["dims"]
+    workers, stitch_workers = l_out["workers"], l_out["stitch_workers"]
+    engine = engines[True]
+    dev = engine.device
+    cfg = engine.config
+    n_flushers = sc.pick_num_flushers(stitch_workers)
+    s_px = cfg.patch_size_pixels - 2 * cfg.halo_size_pixels
+    fits = sc.streaming_fits(dims[0], cfg.num_classes, s_px, num_flushers=n_flushers)
+    buf_h, buf_w = sc.STREAM_TILE + 2 * sc.STREAM_PAD + 2 * s_px, dims[0] + 2 * s_px
+    band_bytes = buf_h * buf_w * (3 + cfg.num_classes) * 2
+    mbps = sc._d2h_mbps(dev)
+    print(f"(s) the banded streaming engine over (l)'s slide: {n_flushers} flusher(s) (the CLI's"
+          f" --stitch-workers {stitch_workers}), bands of {buf_h} x {buf_w} px x"
+          f" {3 + cfg.num_classes} bf16 channels = {band_bytes / 1e6:.1f} MB, at most"
+          f" {3 + 2 * n_flushers + 1} alive: {(3 + 2 * n_flushers + 1) * band_bytes / 2**30:.2f}"
+          f" GiB of the {6:d} GiB budget; link probe {mbps:.0f} MB/s device -> host, so the"
+          f" {'device' if mbps >= 250 else 'host'} basin by default; {card}")
+    check(fits, f"(s) streaming_fits at (l)'s geometry with {n_flushers} flusher(s):"
+          " run_cell_inference takes the streaming engine")
+    # the budget at other widths: (j)'s slide, and a 40x whole slide of
+    # 25 x 25 mm (100,000 px); wider slides take the host-canvas engine
+    alive = 3 + 2 * n_flushers + 1
+    budget = {name: {"width": width,
+                     "bands_gib": alive * buf_h * (width + 2 * s_px) * (3 + cfg.num_classes) * 2
+                     / 2**30,
+                     "fits": sc.streaming_fits(width, cfg.num_classes, s_px,
+                                               num_flushers=n_flushers)}
+              for name, width in (("(l)", dims[0]), ("(j)", SLIDE_PX), ("40x WSI", 100_000))}
+    widest = {}
+    for nf in (n_flushers, 1):
+        lo, hi = 0, 1 << 20
+        while lo < hi:  # the widest slide streaming_fits admits
+            mid = (lo + hi + 1) // 2
+            ok = sc.streaming_fits(mid, cfg.num_classes, s_px, num_flushers=nf)
+            lo, hi = (mid, hi) if ok else (lo, mid - 1)
+        widest[nf] = lo
+    print("    streaming_fits under the 6 GiB default: " + "; ".join(
+        f"{k} {v['width']} px wide: bands {v['bands_gib']:.2f} GiB,"
+        f" {'streams' if v['fits'] else 'host-canvas'}" for k, v in budget.items())
+          + f"; the widest that streams: {widest[n_flushers]} px at {n_flushers} flushers,"
+          f" {widest[1]} px at 1")
+    budget["widest"] = widest
+    stats = {"flushers": n_flushers, "band_bytes": band_bytes, "d2h_mbps": mbps,
+             "fits": fits, "budget": budget, "card": card}
+
+    # (1) the drawn nuclei's maps, streaming against host-canvas ------------
+    drawn_engine = DrawnEngine(engine, l_out["drawn_maps"], coords, dev)
+    src = PlanBatches(coords, ps, CELL_BATCH)
+    t0 = time.perf_counter()
+    st = make_slide_stitcher(drawn_engine, dims[0], dims[1], SLIDE_MPP, cfg.halo_size_pixels)
+    try:
+        stitch_slide(drawn_engine, st, src)
+        host = st.finalize(num_workers=stitch_workers)
+    finally:
+        st.close()
+    host_s = time.perf_counter() - t0
+    n_l = l_out["drawn"][0]
+    print(f"    (1) drawn maps, host-canvas engine (stitch_slide -> finalize): {len(host[0])}"
+          f" instances in {host_s:.2f} s ((l) painted on the canvas: {len(n_l)})")
+    check(abs(len(host[0]) - len(n_l)) <= 0.02 * len(n_l),
+          f"(s) drawn maps through the host-canvas engine: {len(host[0])} instances, within 2%"
+          f" of (l)'s {len(n_l)} on the painted canvas")
+    stats["drawn"] = {"host_canvas": {"instances": len(host[0]), "seconds": host_s}}
+    for basin in ("", "host"):
+        name = basin or "probed"
+        if basin:
+            os.environ["WSINSIGHT_STREAM_BASIN"] = basin
+        try:
+            t0 = time.perf_counter()
+            bst = sc.make_banded_stitcher(drawn_engine, dims[0], dims[1], SLIDE_MPP,
+                                          cfg.halo_size_pixels, num_flushers=n_flushers)
+            try:
+                sc.stream_slide(drawn_engine, bst, src)
+                out = bst.finalize()
+            finally:
+                bst.close()
+            secs = time.perf_counter() - t0
+        finally:
+            os.environ.pop("WSINSIGHT_STREAM_BASIN", None)
+        same, dp = same_instances(out, host)
+        mode = "device" if bst._basin_device else "host"
+        print(f"    (1) drawn maps, streaming engine, {name} basin ({mode}):"
+              f" {len(out[0])} instances in {secs:.2f} s")
+        check(same and dp <= 5e-3, f"(s) drawn maps, {name} basin ({mode}): streaming gives the"
+              f" host-canvas engine's instance set ({len(out[0])}, boxes and polygons identical),"
+              f" max |dp| {dp:.3g} (<= 5e-3)")
+        stats["drawn"][name] = {"basin": mode, "instances": len(out[0]), "seconds": secs,
+                                "same": same, "max_abs_dp": dp}
+    # the capacity reroute's trigger on the card: a per-band id cap of 2
+    cap = sc._MAX_IDS
+    sc._MAX_IDS = 2
+    raised = None
+    try:
+        bst = sc.make_banded_stitcher(drawn_engine, dims[0], dims[1], SLIDE_MPP,
+                                      cfg.halo_size_pixels, num_flushers=n_flushers)
+        try:
+            sc.stream_slide(drawn_engine, bst, src)
+            bst.finalize()
+        except sc.StreamingCapacityError as err:
+            raised = str(err)
+        finally:
+            bst.close()
+    finally:
+        sc._MAX_IDS = cap
+    alive_flushers = sum(t.is_alive() for t in bst._flushers)
+    print(f"    (1) drawn maps, streaming engine with a per-band id cap of 2: {raised!r};"
+          f" {alive_flushers} flusher(s) alive after close()")
+    check(raised is not None and alive_flushers == 0,
+          "(s) drawn maps with _MAX_IDS = 2: StreamingCapacityError reaches the main thread"
+          " (run_cell_inference's reroute to the host-canvas engine) and close() ends the"
+          " flushers")
+    stats["drawn"]["capacity_error"] = raised
+
+    # (2) the real forward: SAM-H bf16 over the plan, both engines ----------
+    n_drawn = len(cell_slide[2][0])
+    head = sam_heads_from_drawn(engine, drawn_engine, path, coords, ps, workers)
+    print(f"    (2) SAM-H's NP head reads decoder0's features through Fisher's discriminant of"
+          f" the drawn nuclei on a probe of {head['probe_patches']} patches, its HV head zeroed:"
+          f" {head}")
+    stats["heads"] = head
+    del drawn_engine, out, host
+    host_st, host_out, host_run = run_cell_slide(engine, kernels, path, coords, ps, dims,
+                                                 workers, stitch_workers)
+    host_st.close()
+    hs = host_run["host_shares"]
+    print(f"    (2) SAM-H bf16, host-canvas engine: {host_run['patches_s']:.1f} patches/s without"
+          f" the finalize ({host_run['wall_s']:.2f} s), {host_run['patches_s_with_finalize']:.1f}"
+          f" with it (finalize {host_run['finalize_s']:.2f} s on {stitch_workers} worker(s));"
+          f" device busy {host_run['busy']:.1%}; peak {host_run['peak_gib']:.2f} GiB; foreground"
+          f" {host_run['foreground']:.2%}; {host_run['instances']} instances ({n_drawn} nuclei"
+          f" drawn); {card}")
+    print(f"    (2) host-canvas main thread, share of the loop: waiting for decoded batches"
+          f" {hs['decode_wait']:.1%}, put {hs['put']:.1%}, dispatch {hs['dispatch']:.1%},"
+          f" scatter {hs['scatter']:.1%}, the rest {1 - sum(hs.values()):.1%}")
+    check(host_run["instances"] >= n_drawn // 10, f"(s) host-canvas run: {host_run['instances']}"
+          f" instances, at least a tenth of the {n_drawn} drawn nuclei (the finalize has"
+          " per-instance work)")
+    check(host_run["launches"] == {"fused_preprocess": 0,
+                                   "window_attention": 32 * host_run["batches"]},
+          f"(s) host-canvas run: K1 and K2 launches {host_run['launches']} (0, 32 per batch)")
+    stats["host_canvas"] = host_run
+    proc = psutil.Process()
+    plain = engine.put, engine.dispatch
+    window = Window(engine)
+    window.host["accumulate"] = 0.0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels:
+        fn.launches = 0
+    hot_stage_report(reset=True)
+    rss0 = proc.memory_info().rss
+    t0 = time.perf_counter()
+    bst = sc.make_banded_stitcher(engine, dims[0], dims[1], SLIDE_MPP, cfg.halo_size_pixels,
+                                  num_flushers=n_flushers)
+    accumulate, flush_band, flushes = bst.accumulate_batch, bst._flush_band, []
+
+    def timed_accumulate(*args, **kw):
+        t = time.perf_counter()
+        accumulate(*args, **kw)
+        window.host["accumulate"] += time.perf_counter() - t
+
+    def timed_flush(b, *args, **kw):
+        t = time.perf_counter()
+        try:
+            flush_band(b, *args, **kw)
+        finally:
+            flushes.append((b, t, time.perf_counter()))
+
+    bst.accumulate_batch, bst._flush_band = timed_accumulate, timed_flush
+    src = PatchBatchSource.from_coords(path, coords, ps, CELL_BATCH, num_threads=workers,
+                                       order_by_y=True, decode_scale=1)
+    try:
+        try:
+            sc.stream_slide(engine, bst, src, window.batches(src))
+        finally:
+            src.close()
+            engine.put, engine.dispatch = plain
+        loop_s = time.perf_counter() - t0
+        rss_loop = proc.memory_info().rss
+        out = bst.finalize()
+        torch.cuda.synchronize()
+    except sc.StreamingCapacityError as err:
+        check(False, f"(s) the streaming run was not rerouted: {err}")
+        raise
+    finally:
+        bst.close()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for fn, name in kernels.items()}
+    stages = hot_stage_report(reset=True)
+    n, n_batches = len(coords), src.num_batches
+    host_shares = {k: v / loop_s for k, v in window.host.items()}
+    run = {"patches": n, "batches": n_batches, "patches_s": n / wall,
+           "patches_s_loop": n / loop_s, "wall_s": wall, "loop_s": loop_s,
+           "finalize_wait_s": wall - loop_s, "busy": window.device_s() / wall,
+           "busy_loop": window.device_s() / loop_s, "host_shares": host_shares,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "rss_growth_gb": (rss_loop - rss0) / 1e9, "instances": len(out[0]),
+           "basin": "device" if bst._basin_device else "host", "launches": launches,
+           "hot_stages": stages,
+           "flushes": flush_overlap(flushes, t0 + loop_s)}
+    stats["forward"] = run
+    fo = run["flushes"]
+    print(f"    (2) SAM-H bf16, streaming engine: {run['patches_s']:.1f} patches/s with everything"
+          f" included ({wall:.2f} s: loop {loop_s:.2f} s, then {run['finalize_wait_s']:.2f} s for"
+          f" the last bands), {run['patches_s_loop']:.1f} over the loop; device busy"
+          f" {run['busy']:.1%} of the wall time ({run['busy_loop']:.1%} of the loop); peak"
+          f" {run['peak_gib']:.2f} GiB on the card; host RSS grew {run['rss_growth_gb']:.2f} GB"
+          f" over the loop; {run['basin']} basin; {len(out[0])} instances; {card}")
+    host_run["busy_with_finalize"] = host_run["busy"] * host_run["wall_s"] / (
+        host_run["wall_s"] + host_run["finalize_s"])
+    print(f"    (2) host-canvas for the same: {host_run['patches_s_with_finalize']:.1f} patches/s"
+          f" with everything included, device busy {host_run['busy_with_finalize']:.1%} of that"
+          f" wall time; {host_run['instances']} instances")
+    print(f"    (2) streaming main thread, share of the loop: waiting for decoded batches"
+          f" {host_shares['decode_wait']:.1%}, put {host_shares['put']:.1%}, dispatch"
+          f" {host_shares['dispatch']:.1%}, accumulate {host_shares['accumulate']:.1%}, the"
+          f" rest {1 - sum(host_shares.values()):.1%}")
+    print("    (2) hot_stage seconds (all threads): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stages.items()))
+    print(f"    (2) the flushers: {fo['flush_s']:.2f} s in _flush_band over {len(fo['bands'])}"
+          f" band(s), {fo['share_during_loop']:.1%} of it before the loop ended; per band"
+          f" (start, end) in s from the loop's end: " + "; ".join(
+              f"{b}: ({v['start_s']:+.2f}, {v['end_s']:+.2f})" for b, v in fo["bands"].items()))
+    k2 = launches["window_attention"]
+    check(k2 == 32 * n_batches, f"(s) K2 launches {k2} (32 per batch x {n_batches} batches)")
+    check(launches["fused_preprocess"] == 0, "(s) K1 launches 0")
+    check(any(k.startswith("flush.") for k in stages) and stages.get(
+        "accumulate.scatter_dispatch", 0) > 0, "(s) the engine's hot stages timed (accumulate"
+          " and flush)")
+    check(len(out[0]) >= n_drawn // 10, f"(s) streaming run: {len(out[0])} instances, at least a"
+          f" tenth of the {n_drawn} drawn nuclei (the flushers have per-instance work)")
+    slide_csv_checks(check, "(s) streaming", engine, out, f"{tempfile.gettempdir()}/s.csv",
+                     bf16_maps=True)
+    hb = {tuple(b[0]) for b in host_out[0]}
+    shared = sum(tuple(b[0]) in hb for b in out[0])
+    run["bbox_share_of_host_canvas"] = shared / max(1, len(hb))
+    print(f"    (2) streaming against host-canvas on the same heads (not checked): {len(out[0])}"
+          f" against {len(hb)} instances, {shared} bboxes in both"
+          f" ({run['bbox_share_of_host_canvas']:.2%} of host-canvas's)")
+    del host_out
+
+    # (3) one run under WSINSIGHT_PROFILE ------------------------------------
+    prof_dir = tempfile.TemporaryDirectory()
+    for fn in kernels:
+        fn.launches = 0
+    os.environ["WSINSIGHT_PROFILE"] = prof_dir.name
+    t0 = time.perf_counter()
+    try:
+        with maybe_trace("stream_cells"):
+            bst = sc.make_banded_stitcher(engine, dims[0], dims[1], SLIDE_MPP,
+                                          cfg.halo_size_pixels, num_flushers=n_flushers)
+            src = PatchBatchSource.from_coords(path, coords, ps, CELL_BATCH,
+                                               num_threads=workers, order_by_y=True,
+                                               decode_scale=1)
+            try:
+                sc.stream_slide(engine, bst, src)
+                bst.finalize()
+            finally:
+                src.close()
+                bst.close()
+    finally:
+        del os.environ["WSINSIGHT_PROFILE"]
+    prof_s = time.perf_counter() - t0
+    traces = [os.path.join(d, f) for d, _, fs in os.walk(prof_dir.name) for f in fs
+              if f.endswith(".pt.trace.json")]
+    streams = kernel_streams(traces[0]) if len(traces) == 1 else {"kernels": 0}
+    streams.update(seconds=prof_s, trace_mb=os.path.getsize(traces[0]) / 1e6 if traces else 0,
+                   k2_launches={n: fn.launches for fn, n in kernels.items()}["window_attention"])
+    prof_dir.cleanup()
+    stats["profile"] = streams
+    nan = float("nan")
+    print(f"    (3) WSINSIGHT_PROFILE over the whole plan ({n} patches, {n_batches} batches):"
+          f" {prof_s:.2f} s, trace {streams['trace_mb']:.1f} MB, {streams['kernels']} CUDA kernel"
+          f" events; per stream {streams.get('streams')}; the flushers' kernels"
+          f" {streams.get('flusher_kernel_ms', nan):.2f} ms, of which"
+          f" {streams.get('flusher_overlap', nan):.1%} overlap the forward stream's kernels and"
+          f" {streams.get('flusher_before_forward_end', nan):.1%} ran before its last one ended")
+    check(len(traces) == 1 and streams["kernels"] > 0
+          and streams.get("forward_stream") is not None,
+          f"(s) WSINSIGHT_PROFILE wrote one torch.profiler trace under <dir>/stream_cells/ with"
+          f" CUDA kernel events ({streams['kernels']}), K2's among them")
+    check(streams["k2_launches"] == 32 * n_batches, f"(s) profiled run: K2 launches"
+          f" {streams['k2_launches']} (32 per batch x {n_batches})")
+    stats["seconds"] = time.perf_counter() - t_phase
+    print(f"    (s) took {stats['seconds']:.1f} s")
+    k2_host = host_run["launches"]["window_attention"]
+    return {"stats": stats, "k2_launches": k2_host + k2 + streams["k2_launches"]}
 
 
 # (m): the zoo's other classifiers, with seeded weights (seed SEED):
@@ -2128,11 +2660,12 @@ CME_EPOCHS = 300  # the CLI's default
 CME_RESOLUTIONS = "0.25,0.5,1.0,2.0"  # the CLI's default
 
 
-def slide_csv_checks(check, what, engine, out, csv_path) -> None:
-    """(l)'s and (q)'s checks on a cell slide's output: the lists aligned,
-    every polygon inside its bbox, the CSV through write_slide_csv one row
-    per instance under the model's header, finite, rows summing to 1 within
-    K/2 levels (quantized transfer)."""
+def slide_csv_checks(check, what, engine, out, csv_path, bf16_maps=False) -> None:
+    """(l)'s, (q)'s and (s)'s checks on a cell slide's output: the lists
+    aligned, every polygon inside its bbox, the CSV through write_slide_csv
+    one row per instance under the model's header, finite, rows summing to 1
+    within K/2 levels (the quantized transfer), or within K half-ulps of bf16
+    at 1 (2^-9 each; ``bf16_maps``: the streaming engine's bands)."""
     import pandas as pd
 
     from wsinsight_tpu_torch.engine.runner import write_slide_csv
@@ -2155,10 +2688,12 @@ def slide_csv_checks(check, what, engine, out, csv_path) -> None:
     df = pd.read_csv(csv_path)
     p = df[[f"prob_{c}" for c in cfg.class_names]].to_numpy(dtype=np.float64)
     dsum = float(np.abs(p.sum(axis=1) - 1.0).max()) if len(p) else 0.0
+    bar, unit = (k * 2.0**-9, "K x 2^-9, bf16 bands") if bf16_maps else (
+        k * 0.5 / 255, "K x 1/2 level, quantized transfer")
     check(first == header and len(df) == len(boxes) and bool(np.isfinite(p).all())
-          and dsum <= k * 0.5 / 255 + 1e-6,
+          and dsum <= bar + 1e-6,
           f"{what}: the CSV has one row per instance ({len(df)}) under {header}, rows finite,"
-          f" summing to 1 within {dsum:.3g} (<= K x 1/2 level, quantized transfer)")
+          f" summing to 1 within {dsum:.3g} (<= {unit})")
 
 
 def virchow_phase(check, kernels, card, rng, dev, cell_slide) -> dict:
@@ -2857,7 +3392,10 @@ def main() -> int:
     nuclei_path = f"{nuclei_tmp.name}/cells.tif"
     nuclei_slide = (nuclei_path, *write_nuclei_slide(nuclei_path, CELL_SLIDE_PX, rng))
     cell_slide = cell_slide_phase(check, kernels, card, rng, slide_engines, nuclei_slide)
-    del slide_engines
+
+    # (s) ------------------------------------------------------------------
+    stream = stream_phase(check, kernels, card, slide_engines, nuclei_slide, cell_slide)
+    del slide_engines, cell_slide["drawn_maps"]
     torch.cuda.empty_cache()
 
     # (o) ------------------------------------------------------------------
@@ -2885,7 +3423,7 @@ def main() -> int:
                    if s["shape"] == "sam_h_windowed" and s["dtype"] == "bfloat16")
     k2_launches = sum(st["launches"]["window_attention"]
                       for stats in cell.values() for st in stats.values())
-    k2_launches += cell_slide["k2_launches"] + virchow["k2_launches"]
+    k2_launches += cell_slide["k2_launches"] + stream["k2_launches"] + virchow["k2_launches"]
     k2_launches += analytics["hoptimus"]["k2_launches"]
     record = {"kernels": [{
         "name": "fused_preprocess",
@@ -2924,6 +3462,7 @@ def main() -> int:
     print(json.dumps({"cells": cell}))
     print(json.dumps({"slide": slide["stats"]}))
     print(json.dumps({"cell_slide": cell_slide["stats"]}))
+    print(json.dumps({"stream_cells": stream["stats"]}))
     print(json.dumps({"hovernet": hovernet}))
     print(json.dumps({"stardist": stardist}))
     print(json.dumps({"virchow": virchow}))

@@ -595,3 +595,142 @@ def test_run_inference_end2end_lists_a_failed_slide(cell_run, tmp_path):
                            object_detection="end2end", stitch_workers=1)
     assert failed == ([], ["gone"])
     assert not (results / "model-outputs-csv" / "gone.csv").exists()
+
+
+# ---------------------------------------------------------------------------
+# run_cell_inference's engines: banded streaming by default, host-canvas
+# ---------------------------------------------------------------------------
+
+
+ROUTE_PATCHES = 8  # the middle 8 patches of the plan (in row order): one batch
+
+
+@pytest.fixture(scope="module")
+def cell_slide_run(cell_run, tmp_path_factory):
+    """The fixture's slide and checkpoint for the port's ``run_cell_inference``
+    (CPU engine, one stitch worker) on a patch file of ROUTE_PATCHES of its
+    plan's patches, and its results on the host-canvas engine
+    (WSINSIGHT_STREAM_CELLS=0) with each NP canvas as finalize receives it:
+    with the default uint8 transfer, and with the bf16 transfer and the
+    ridge in torch (the streaming engine's bf16 maps and device energy)."""
+    import h5py
+
+    import wsinsight_tpu_torch.engine.stitch as port_stitch
+    from wsinsight_tpu_torch.engine.cells import CellEngine, run_cell_inference
+    from wsinsight_tpu_torch.patchlib.io import save_hdf5
+    from wsinsight_tpu_torch.uri_path import URIPath
+    from wsinsight_tpu_torch.zoo import load_local_model
+
+    out, (cfg, weights) = cell_run
+    with h5py.File(out["port"][0] / "patches" / "cells.h5", "r") as f:
+        g, c = f["/slide"], f["/coords"]
+        slide = {k: g.attrs[k] for k in ("slide_path", "slide_mpp", "slide_width",
+                                         "slide_height")}
+        coords, patch_size = c[()], int(c.attrs["patch_size"])
+        spacing, tile_dim = float(c.attrs["patch_spacing_um_px"]), c.attrs.get("tile_dim")
+    order = np.lexsort((coords[:, 0], coords[:, 1]))
+    mid = len(order) // 2 - ROUTE_PATCHES // 2
+    patch_path = tmp_path_factory.mktemp("routes") / "cells.h5"
+    save_hdf5(patch_path, coords[np.sort(order[mid : mid + ROUTE_PATCHES])], None, tile_dim,
+              patch_size, spacing, **slide)
+    kw = dict(wsi_path=URIPath(slide["slide_path"]), patch_path=URIPath(str(patch_path)),
+              use_hdf5_images=False, mpp=float(slide["slide_mpp"]),
+              slide_width=int(slide["slide_width"]), slide_height=int(slide["slide_height"]),
+              halo_size_px=16, batch_size=8, num_workers=1, stitch_workers=1)
+    engine = CellEngine(load_local_model(cfg, weights), device="cpu")
+    runs = {}
+    with pytest.MonkeyPatch.context() as mp:
+        canvases = []
+
+        def finalize(self, *args, _finalize=port_stitch.TileRemapStitcher.finalize, **kwargs):
+            canvases.append(np.array(self.np_map))
+            return _finalize(self, *args, **kwargs)
+
+        mp.setattr(port_stitch.TileRemapStitcher, "finalize", finalize)
+        mp.setenv("WSINFER_FORCE_CPU", "1")
+        mp.setenv("WSINSIGHT_STREAM_CELLS", "0")
+        for name, env in (("u8", {}), ("bf16", {"WSINSIGHT_CELL_TRANSFER": "bfloat16",
+                                                "WSINSIGHT_DEVICE_RIDGE": "1"})):
+            for var, value in env.items():
+                mp.setenv(var, value)
+            runs[name] = (run_cell_inference(engine, **kw), canvases[-1])
+    return engine, kw, runs
+
+
+def _instance_lists(out):
+    """run_cell_inference's (boxes, probs, polygons) as finalize's lists."""
+    return [b[None] for b in out[0]], [p[None] for p in out[1]], out[2]
+
+
+# case -> (environment, _MAX_IDS, banded finalize calls, host-canvas finalize calls, log)
+ROUTES = {
+    "default": ({}, None, 1, 0, None),
+    "capacity_error": ({}, 2, 1, 1, "capacity exceeded"),
+    "budget_miss": ({"WSINSIGHT_STREAM_HBM_BYTES": "1"}, None, 0, 1, "exceed the HBM budget"),
+    "off": ({"WSINSIGHT_STREAM_CELLS": "0"}, None, 0, 1, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTES))
+def test_run_cell_inference_routes_as_jax(monkeypatch, caplog, cell_slide_run, case):
+    """The JAX package's routing (engine/cells.py:150-187): the banded
+    streaming engine by default; a band over the instance cap reruns the
+    slide on the host-canvas engine (warning), a budget miss takes it
+    (info), WSINSIGHT_STREAM_CELLS=0 asks for it. With the host-canvas
+    engine on the streaming engine's map precision (bf16 transfer, the
+    ridge in torch) every route gives its instances: boxes and polygons
+    identical, probabilities within 1e-5 (f32 index_add sums against
+    float64 means of the same bf16 values)."""
+    import logging
+
+    import wsinsight_tpu_torch.engine.stream_cells as sc
+    from wsinsight_tpu_torch.engine.cells import run_cell_inference
+    from wsinsight_tpu_torch.engine.stitch import TileRemapStitcher
+
+    engine, kw, runs = cell_slide_run
+    env, max_ids, want_banded, want_host, log = ROUTES[case]
+    monkeypatch.setenv("WSINSIGHT_CELL_TRANSFER", "bfloat16")
+    monkeypatch.setenv("WSINSIGHT_DEVICE_RIDGE", "1")
+    for var, value in env.items():
+        monkeypatch.setenv(var, value)
+    if max_ids is not None:
+        monkeypatch.setattr(sc, "_MAX_IDS", max_ids)
+    calls = {"banded": 0, "host": 0}
+    for name, cls in (("banded", sc.BandedCellStitcher), ("host", TileRemapStitcher)):
+        def finalize(self, *args, _finalize=cls.finalize, _name=name, **kwargs):
+            calls[_name] += 1
+            return _finalize(self, *args, **kwargs)
+
+        monkeypatch.setattr(cls, "finalize", finalize)
+    with caplog.at_level(logging.INFO, logger="wsinsight_tpu_torch.engine.cells"):
+        got = run_cell_inference(engine, **kw)
+    assert calls == {"banded": want_banded, "host": want_host}
+    messages = [r.getMessage() for r in caplog.records
+                if r.name == "wsinsight_tpu_torch.engine.cells"]
+    assert (log is None and not messages) or any(log in m for m in messages), messages
+    want = runs["bf16"][0]
+    assert len(want[0]) > 50
+    _assert_same_instances(_instance_lists(got), _instance_lists(want), prob_atol=1e-5)
+
+
+def test_streaming_against_uint8_transfer_differs_only_at_np_ties(cell_slide_run):
+    """By default the streaming engine's instances are the host-canvas
+    engine's on bf16 maps (above), not on its default uint8 transfer: the
+    fixture's NP head leaves much of the slide near p = 0.5, and the two
+    round p apart there (bf16 keeps p in [0.5 - 2^-10, 0.5) as 0.5, the
+    uint8 transfer as 127/255). Every NP > 0.5 decision that differs between
+    the two canvases is such a tie, and every instance that only one of the
+    two has covers (its bbox grown by one pixel) a differing decision."""
+    _, _, runs = cell_slide_run
+    (u8_out, u8_np), (bf_out, bf_np) = runs["u8"], runs["bf16"]
+    flips = (u8_np >= 0.5) != (bf_np >= 0.5)
+    assert flips.any()
+    levels = np.round(u8_np[flips] * 255)
+    assert set(np.unique(levels)) <= {127.0, 128.0}
+    assert np.abs(bf_np[flips] - 0.5).max() <= 2.0**-9
+    u8_boxes, bf_boxes = ({tuple(b) for b in out[0].tolist()} for out in (u8_out, bf_out))
+    only = u8_boxes ^ bf_boxes
+    print(f"uint8 transfer {len(u8_boxes)} instances, bf16 {len(bf_boxes)}; {int(flips.sum())}"
+          f" NP decisions differ; {len(only)} bboxes in one only")
+    for x, y, w, h in only:
+        assert flips[max(0, y - 1) : y + h + 1, max(0, x - 1) : x + w + 1].any(), (x, y, w, h)

@@ -408,16 +408,25 @@ def test_plan_slide_halo_grid_matches_jax(slides, tmp_path, patch_px, halo, step
         assert "/polygons" not in port and "/polygons" not in jax
 
 
-def test_profile_env_raises(monkeypatch):
+def test_profile_env_raises(monkeypatch, tmp_path):
+    """WSINSIGHT_PROFILE=<dir> no longer raises: maybe_trace times the stage
+    and writes a torch.profiler trace of it under <dir>/<stage>/, where the
+    JAX package writes its jax.profiler trace; unset, it only times."""
+    import json
+
     from wsinsight_tpu_torch.utils.profiling import maybe_trace, stage_timings
 
     with maybe_trace("stage_x"):
         pass
     assert "stage_x" in stage_timings()
-    monkeypatch.setenv("WSINSIGHT_PROFILE", "/nowhere")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 10"):
-        with maybe_trace("stage_y"):
-            pass
+    monkeypatch.setenv("WSINSIGHT_PROFILE", str(tmp_path / "profile"))
+    with maybe_trace("stage_y"):
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    assert "stage_y" in stage_timings()
+    assert [p.name for p in (tmp_path / "profile").iterdir()] == ["stage_y"]
+    (trace,) = (tmp_path / "profile" / "stage_y").glob("*.pt.trace.json")
+    names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
+    assert "aten::mm" in names or "aten::matmul" in names
 
 
 def _typed_cells(n=20, step=10.0, radius=55.0):

@@ -23,7 +23,8 @@ YUV 4:2:0 wire, the DCT half decode and stain normalization (``ops.stain``);
 and the cell path's host half, slide to nuclei: the halo grid, the
 stitcher's tiled watershed finalize (``ops.hv_postproc``, ``ops.watershed``
 on the native watershed, ``ops.hv_device``) and ``engine.cells.
-run_cell_inference`` behind ``run_inference``'s end2end branch; and
+run_cell_inference`` behind ``run_inference``'s end2end branch, by default
+on the banded streaming cell engine (``engine.stream_cells``); and
 infer's outputs and side branches: the GeoJSON, OME-CSV and QuPath
 exporters (``writers``), the QuPath planners and pseudo-models, the
 references overlay and ``tosbu`` (``cli.convert_csv_to_sbubmi``).

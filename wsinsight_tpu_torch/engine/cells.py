@@ -17,18 +17,21 @@ device half::
             stitcher.scatter(*pending)  # the previous batch's transfer
         pending = (maps, batch.coords, batch.n_valid)
 
-``run_cell_inference`` builds the stitcher and the source of one slide, runs
-``stitch_slide`` and the stitcher's ``finalize`` (the tiled watershed on host
-threads), and returns the slide's instances.
-
-The JAX package runs its banded streaming engine by default
-(WSINSIGHT_STREAM_CELLS=1); the port has only the host-canvas engine
-(ROADMAP.md Queue 1, item 6), which gives the same instances, and runs it
-whatever the variable says.
+``run_cell_inference`` routes as the JAX package's does. By default
+(WSINSIGHT_STREAM_CELLS unset or "1") it runs the banded streaming engine
+(``engine/stream_cells.py``: the maps stay on the device in slide-space
+bands, flusher threads run the watershed while the forwards go on) when its
+bands fit the device budget (``streaming_fits``); a budget miss, or a band
+that overflows the engine's instance cap (``StreamingCapacityError``, after
+which the slide runs again), takes the host-canvas engine: it builds the
+stitcher and the source of one slide, runs ``stitch_slide`` and the
+stitcher's ``finalize`` (the tiled watershed on host threads). "0" or ""
+asks for the host-canvas engine. Both give the same instances.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from typing import Iterator, List
 
@@ -45,6 +48,8 @@ from ..zoo import ModelHandle, randomize_cell_model
 from .data import Batch, PatchBatchSource
 from .runner import precision_allows_tf32, tf32_flags
 from .stitch import TileRemapStitcher
+
+logger = logging.getLogger(__name__)
 
 
 class CellEngine:
@@ -159,6 +164,17 @@ def stitch_slide(
             qbar.update(1)
 
 
+def slide_geometry(engine: CellEngine, mpp: float, halo_size_px: int) -> tuple[int, int]:
+    """(slide patch size, slide halo size) in slide pixels at ``mpp``.
+    Geometry contract of the reference (run_inference.py:309-311): the
+    model's maps cover patch_px - 2*halo px at its spacing, scaled to slide
+    pixels by spacing/mpp."""
+    cfg = engine.config
+    model_output_size_px = cfg.patch_size_pixels - 2 * halo_size_px
+    return (int(round(model_output_size_px * cfg.spacing_um_px / mpp)),
+            int(round(halo_size_px * cfg.spacing_um_px / mpp)))
+
+
 def make_slide_stitcher(
     engine: CellEngine,
     slide_width: int,
@@ -167,20 +183,17 @@ def make_slide_stitcher(
     halo_size_px: int,
     min_object_size: int = 20,
 ) -> TileRemapStitcher:
-    """The stitcher of one slide at ``mpp``. Geometry contract of the
-    reference (run_inference.py:309-311): the model's maps cover
-    patch_px - 2*halo px at its spacing, scaled to slide pixels by
-    spacing/mpp. Its transfer dtype is the quantized default (uint8 NP/TP,
-    bf16 HV; WSINSIGHT_CELL_TRANSFER overrides it), its ridge device the
-    engine's."""
+    """The host-canvas stitcher of one slide at ``mpp`` (``slide_geometry``).
+    Its transfer dtype is the quantized default (uint8 NP/TP, bf16 HV;
+    WSINSIGHT_CELL_TRANSFER overrides it), its ridge device the engine's."""
     cfg = engine.config
-    model_output_size_px = cfg.patch_size_pixels - 2 * halo_size_px
+    slide_patch_size, slide_halo_size = slide_geometry(engine, mpp, halo_size_px)
     return TileRemapStitcher(
         n_classes=cfg.num_classes,
         slide_width=slide_width,
         slide_height=slide_height,
-        slide_patch_size=int(round(model_output_size_px * cfg.spacing_um_px / mpp)),
-        slide_halo_size=int(round(halo_size_px * cfg.spacing_um_px / mpp)),
+        slide_patch_size=slide_patch_size,
+        slide_halo_size=slide_halo_size,
         slide_mpp=mpp,
         model_mpp=cfg.spacing_um_px,
         min_object_size=min_object_size,
@@ -210,6 +223,39 @@ def run_cell_inference(
     model_output = patch_px - 2*halo; slide sizes scaled by spacing/mpp.
     """
     cfg = engine.config
+    if os.getenv("WSINSIGHT_STREAM_CELLS", "1") not in ("0", ""):
+        from .stream_cells import (
+            StreamingCapacityError,
+            pick_num_flushers,
+            run_streaming_cell_inference,
+            streaming_fits,
+        )
+
+        n_flushers = pick_num_flushers(stitch_workers)
+        slide_patch_size = slide_geometry(engine, mpp, halo_size_px)[0]
+        if streaming_fits(slide_width, cfg.num_classes, slide_patch_size, num_flushers=n_flushers):
+            try:
+                return run_streaming_cell_inference(
+                    engine,
+                    wsi_path=wsi_path,
+                    patch_path=patch_path,
+                    use_hdf5_images=use_hdf5_images,
+                    slide_width=slide_width,
+                    slide_height=slide_height,
+                    mpp=mpp,
+                    halo_size_px=halo_size_px,
+                    batch_size=batch_size,
+                    num_workers=num_workers,
+                    min_object_size=min_object_size,
+                    stitch_workers=stitch_workers,
+                )
+            except StreamingCapacityError as err:
+                logger.warning(f"streaming engine capacity exceeded ({err}); rerunning the"
+                               " slide on the host-canvas path")
+        else:
+            logger.info("banded streaming requested but bands exceed the HBM budget; using"
+                        " the host-canvas path")
+
     stitcher = make_slide_stitcher(engine, slide_width, slide_height, mpp, halo_size_px,
                                    min_object_size)
     src = None

@@ -569,12 +569,6 @@ def run_inference(
                 if cell_engine is None:
                     cell_engine = CellEngine(model_info, mixed_precision=mixed_precision,
                                              device=device)
-                    logger.info(
-                        "cells run on the host-canvas engine: the banded streaming engine"
-                        " that WSINSIGHT_STREAM_CELLS="
-                        f"{os.getenv('WSINSIGHT_STREAM_CELLS', '1')!r} selects in the JAX"
-                        " package is not ported (ROADMAP.md, Queue 1, item 6); both give"
-                        " the same instances")
                 if not _run_cell_slide(cell_engine, wsi_path, patch_path, use_hdf5_images,
                                        slide_csv, model_info.config.class_names,
                                        halo_size_px=halo_size_px, batch_size=batch_size,

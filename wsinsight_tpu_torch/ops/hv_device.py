@@ -8,11 +8,13 @@ wsinsight/modellib/tilefuse.py:63-79). That part is foreground-independent:
 only depends on the HV maps, so it can run batched on the card while the
 host keeps the sequential tail (hole fill, labelling, watershed).
 
-The stitcher runs it when ``WSINSIGHT_DEVICE_RIDGE=1``, on the device it is
-given, and never moves it to another one. Numerics are pinned to the cv2
-path by tests (the taps of ``cv2.getDerivKernels(1, 0, ksize=21)``, the same
-REFLECT_101 border). The JAX package's ``make_blur3_core`` serves only its
-streaming engine and waits for it (ROADMAP.md Queue 1, item 6).
+The host-canvas stitcher runs it when ``WSINSIGHT_DEVICE_RIDGE=1``, on the
+device it is given, and never moves it to another one; the banded streaming
+engine (``engine/stream_cells.py``) runs it on every tile window, with
+``make_blur3_core``'s integer basin blur when it proposes the watershed's
+markers on the device. Numerics are pinned to the cv2 path by tests (the
+taps of ``cv2.getDerivKernels(1, 0, ksize=21)``, the same REFLECT_101
+border).
 """
 
 from __future__ import annotations
@@ -72,6 +74,26 @@ def make_energy_core(ksize: int = 21):
         return torch.maximum(1.0 - _unit(grad_h), 1.0 - _unit(grad_v))
 
     return energy
+
+
+def make_blur3_core():
+    """(B, H, W) tensor -> (B, H, W) float32 [1,2,1]x[1,2,1] blur with a
+    REFLECT_101 border, each image on its own.
+
+    The integer watershed-basin blur (ops/hv_postproc._integer_basin) on the
+    device: inputs are integers in [0, 255], so every sum stays at or below
+    16 * 255 = 4080 and float32 shifted adds are exact, bit for bit the
+    host's integer cv2.sepFilter2D. Never conv2d: a TF32 product keeps 10
+    bits and 4080 needs 12."""
+
+    def blur3(x: torch.Tensor) -> torch.Tensor:
+        x = x.to(torch.float32)
+        xp = F.pad(x, (1, 1), mode="reflect")
+        r = xp[..., :-2] + 2.0 * xp[..., 1:-1] + xp[..., 2:]
+        rp = F.pad(r, (0, 0, 1, 1), mode="reflect")
+        return rp[:, :-2] + 2.0 * rp[:, 1:-1] + rp[:, 2:]
+
+    return blur3
 
 
 def make_energy_fn(ksize: int = 21):

@@ -25,10 +25,9 @@ The default tail is the EXACT-INTEGER formulation: energy as u8 fixed-point
 (e*255) and the basin as an integer [1,2,1]⊗[1,2,1] convolution (see
 ``_integer_basin``) — order-equivalent to the float Gaussian recipe over u8
 energy, one integer filter pass instead of several f32 image passes, and
-bit-identical whether evaluated here or in the JAX package's streaming
-engine's device window kernel (its engine/stream_cells.py
-window_stage_proposal; the port's streaming engine is ROADMAP.md Queue 1
-item 6, and ``extract_instance_labels*`` below are its entry points).
+bit-identical whether evaluated here or in the streaming engine's device
+window program (engine/stream_cells.py window_stage_proposal, here and in
+the JAX package; ``extract_instance_labels*`` below are its entry points).
 ``WSINSIGHT_HV_BASIN=f32`` restores the float recipe end-to-end.
 
 Alignment guarantee: the returned bbox / prob / polygon lists are always the
@@ -346,8 +345,8 @@ def extract_instance_labels(
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, List[np.ndarray | None]]:
     """Tile segmentation + measurement WITHOUT class probabilities.
 
-    For a streaming engine (the JAX package's engine/stream_cells.py),
-    where per-instance class means are computed on the device from the type
+    For the streaming engine (engine/stream_cells.py), where per-instance
+    class means are computed on the device from the type
     maps after the label image is known. Returns (labels_interior int32,
     ids, boxes, polygons) with polygons[i] None when degenerate — the caller
     drops those instances everywhere so the alignment guarantee holds.

@@ -5,11 +5,13 @@ the rebuild adds:
 
 * `stage_timer` — wall-clock per pipeline stage, collected into the run
   metadata JSON,
-* `maybe_trace` — the stage timer around a stage. The JAX package also
-  writes a profiler trace when WSINSIGHT_PROFILE=<dir> is set; the port
-  does not yet, and refuses the variable rather than ignore it,
+* `maybe_trace` — the stage timer around a stage and, when
+  WSINSIGHT_PROFILE=<dir> is set, a torch.profiler trace of the stage's
+  CPU and CUDA activity written under <dir>/<stage>/ (the JAX package
+  writes a jax.profiler trace there),
 * `hot_stage` / `hot_stage_report` — wall seconds per hot-loop stage (the
-  HV post-processing tail, StarDist's plan, CME's phases), accumulated when
+  HV post-processing tail, the streaming cell engine's accumulate and
+  flush, StarDist's plan, CME's phases), accumulated when
   WSINSIGHT_STREAM_PROFILE=1.
 """
 
@@ -20,8 +22,6 @@ import os
 import threading
 import time
 from typing import Iterator
-
-from ..errors import not_ported
 
 _STAGE_TIMINGS: dict[str, float] = {}
 
@@ -85,8 +85,22 @@ def hot_stage_report(reset: bool = True) -> dict[str, float]:
 
 @contextlib.contextmanager
 def maybe_trace(stage: str) -> Iterator[None]:
-    """Time ``stage``; WSINSIGHT_PROFILE raises until the port's trace exists."""
-    if os.getenv("WSINSIGHT_PROFILE"):
-        raise NotImplementedError(not_ported("WSINSIGHT_PROFILE (a profiler trace per stage)", 10))
-    with stage_timer(stage):
-        yield
+    """Time ``stage``; with WSINSIGHT_PROFILE=<dir>, trace it with
+    torch.profiler (CPU, and CUDA where a card is present) into
+    <dir>/<stage>/ as a Chrome / TensorBoard trace (``*.pt.trace.json``)."""
+    trace_dir = os.getenv("WSINSIGHT_PROFILE")
+    if not trace_dir:
+        with stage_timer(stage):
+            yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    out = os.path.join(trace_dir, stage)
+    os.makedirs(out, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(out)):
+        with stage_timer(stage):
+            yield
