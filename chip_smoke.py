@@ -12,10 +12,11 @@ rel-pos attention; also over a whole slide to its nuclei), CellViT-256-x40
 (ViT-S/16 with a cls token) and hovernet_fast_pannuke (HoVer-Net fast);
 then StarDist's object-based patch stage and a classifier on its nuclei;
 CellViT-Virchow-x40-AMP (Virchow's DINOv2 ViT-H/14); the banded streaming
-cell engine over the nuclei slide; and the analytics
+cell engine over the nuclei slide; the analytics
 (H-Plot, CME with its DGI training and the Leiden sweep, the H-Optimus-0
-foundation branch). Holds every hand-written kernel against its plain
-torch version. Phases; any failure exits non-zero and prints no result
+foundation branch); and the engines and the DGI over a device list of
+replicas, slides over two host processes, and `models convert`. Holds every
+hand-written kernel against its plain torch version. Phases; any failure exits non-zero and prints no result
 line:
 
   (a) the card's name and power limit; no CUDA -> exit 1;
@@ -256,7 +257,27 @@ line:
       overlaps the forward stream's and that ran before its last kernel;
       checks: one trace with kernel events, K2's among them, and K2
       launches 32 per batch.
-The line before the last is the kernels' JSON record; the last line is
+  (t) (after (m)) the engines and the DGI on a device list naming the card
+      twice (``devices=["cuda:0", "cuda:0"]``: two replicas, each batch split
+      in two and gathered on the first), and several hosts: the default
+      device list's cards; (d)'s ResNet34 batches in parity and bf16 on two
+      replicas and on one (patches/s of both, reported); CellViT-256-x40 at
+      B=32 in parity on two replicas and on one over 4 seeded batches;
+      two processes on the card under a coordinator on 127.0.0.1 (a free
+      port) sharing 4 seeded 1,400 px slides through shard_slides_for_host
+      and classify_slide on in-memory plans; (d)'s torch checkpoint through
+      `models convert --report` to a flax msgpack and classified; the DGI
+      over 3 small graphs (padded to 4) on two card replicas and on two CPU
+      ones; checks: the default list is every visible card, parity on two
+      replicas within 1e-5 of one, bf16 on two within 0.01 of parity, K1
+      launches two per bf16 batch, CellViT-256's maps within 1e-4 of one
+      replica's and its K2 launches doubled, each slide classified once by
+      one process and the union's probabilities one process's bit for bit
+      (a child that fails fails the phase), the converted msgpack's
+      probabilities the state dict's bit for bit, and the DGI's loss and
+      weights within 1e-4 relative of the CPU's.
+After the last phase the script prints each phase's seconds on the host
+clock ("phase seconds"), pass or fail. The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}, printed exactly when every phase passed, and
 then the script exits 0; otherwise it exits 1 (also where CUDA is missing or
 the port's package is not beside it). Imports nothing of JAX.
@@ -362,6 +383,21 @@ def _cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+class PhaseClock:
+    """Host seconds of each phase of main: a phase runs from its mark to the
+    next mark (the last to ``seconds``' call)."""
+
+    def __init__(self):
+        self.marks: list[tuple[str, float]] = []
+
+    def __call__(self, name: str) -> None:
+        self.marks.append((name, time.perf_counter()))
+
+    def seconds(self) -> dict:
+        ends = [t for _, t in self.marks[1:]] + [time.perf_counter()]
+        return {name: round(end - t, 1) for (name, t), end in zip(self.marks, ends)}
 
 
 class Checks:
@@ -1769,7 +1805,7 @@ def zoo_phase(check, kernels, card, resnet) -> dict:
             launches = {kname: fn.launches for fn, kname in kernels.items()}
             x = engine.put(data[1])
             step = _cuda_ms(lambda: engine.dispatch(x), reps=5)
-            pre = _cuda_ms(lambda: engine._preprocess(x), reps=5)
+            pre = _cuda_ms(lambda: engine._preprocess(x[0]), reps=5)
             st = model_stats[mode] = {
                 "patches_s": ZOO_BATCHES * BATCH / secs,
                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -3147,10 +3183,334 @@ def resident_cell_phase(check, kernels, rng, dev, phase, tag, model_name, per_ba
     return stats, engines
 
 
+# (t)'s child process: one host of a two-process run under a coordinator.
+# It joins the group, classifies its round-robin share of the sorted slides
+# on in-memory plans and writes each slide's result once ("xb" fails if
+# another process wrote it already).
+HOST_CHILD = r"""
+import json, os, sys
+import numpy as np
+args = json.loads(sys.argv[1])
+from wsinsight_tpu_torch.parallel.multihost import (
+    maybe_initialize_distributed, process_info, shard_slides_for_host)
+assert maybe_initialize_distributed(), "not multi-process"
+rank, count = process_info()
+from wsinsight_tpu_torch.engine import ClassifierEngine
+from wsinsight_tpu_torch.engine.data import PatchBatchSource
+from wsinsight_tpu_torch.engine.runner import classify_slide
+from wsinsight_tpu_torch.zoo import load_local_model
+engine = ClassifierEngine(load_local_model(args["config"], args["weights"]), device=args["device"])
+mine = shard_slides_for_host(sorted(args["slides"]))
+for path in mine:
+    src = PatchBatchSource.from_coords(path, np.asarray(args["coords"]), args["ps"], args["batch"],
+                                       num_threads=2)
+    try:
+        coords, probs = classify_slide(engine, src)
+    finally:
+        src.close()
+    stem = os.path.splitext(os.path.basename(path))[0]
+    with open(os.path.join(args["out"], stem + ".npz"), "xb") as fh:
+        np.savez(fh, coords=coords, probs=probs, rank=rank)
+import torch.distributed as dist
+dist.destroy_process_group()
+print(json.dumps({"rank": rank, "count": count, "slides": mine}))
+"""
+HOST_SLIDES = 4
+HOST_SLIDE_PX = 1400  # a 4 x 4 grid of 350 px patches per slide
+DGI_EPOCHS = 10
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def host_fanout(check, card, rng, dev, work: str, n_proc: int = 2) -> dict:
+    """(t)'s multi-host part: ``n_proc`` processes on the card under one
+    coordinator on 127.0.0.1 share HOST_SLIDES seeded slides through
+    shard_slides_for_host and classify_slide; each slide is classified once,
+    and the union's probabilities are one process's bit for bit."""
+    from wsinsight_tpu_torch.engine import ClassifierEngine
+    from wsinsight_tpu_torch.engine.data import PatchBatchSource
+    from wsinsight_tpu_torch.engine.runner import classify_slide
+    from wsinsight_tpu_torch.wsi.tiff import write_pyramidal_tiff
+    from wsinsight_tpu_torch.zoo import load_local_model, make_random_local_model
+
+    t0 = time.perf_counter()
+    slides = []
+    for i in range(HOST_SLIDES):
+        path = os.path.join(work, f"host_{i}.tif")
+        img = rng.integers(90, 230, (HOST_SLIDE_PX, HOST_SLIDE_PX, 3), dtype=np.uint8)
+        write_pyramidal_tiff(path, img, tile=(256, 256), compression="deflate", mpp=0.25)
+        slides.append(path)
+    ps = 350
+    coords = np.array([(x, y) for y in range(0, HOST_SLIDE_PX - ps + 1, ps)
+                       for x in range(0, HOST_SLIDE_PX - ps + 1, ps)], np.int32)
+    cfg, weights = make_random_local_model("resnet34", 2, os.path.join(work, "host_model"),
+                                           seed=SEED)
+    engine = ClassifierEngine(load_local_model(cfg, weights), device=dev)
+    want = {}
+    for path in slides:
+        src = PatchBatchSource.from_coords(path, coords, ps, 8, num_threads=2)
+        try:
+            want[path] = classify_slide(engine, src)[1]
+        finally:
+            src.close()
+    del engine
+    out = os.path.join(work, "host_out")
+    os.makedirs(out)
+    args = json.dumps({"config": str(cfg), "weights": str(weights), "device": str(dev),
+                       "slides": slides, "coords": coords.tolist(), "ps": ps, "batch": 8,
+                       "out": out})
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = _free_port()
+    procs = []
+    t1 = time.perf_counter()
+    try:
+        for i in range(n_proc):
+            env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                       JAX_NUM_PROCESSES=str(n_proc), JAX_PROCESS_ID=str(i),
+                       PYTHONPATH=os.pathsep.join(filter(None, [root,
+                                                               os.getenv("PYTHONPATH")])))
+            procs.append(subprocess.Popen([sys.executable, "-c", HOST_CHILD, args], cwd=root,
+                                          env=env, stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True))
+        results = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t1
+    shares = []
+    for i, (p, (stdout, stderr)) in enumerate(zip(procs, results)):
+        ok = p.returncode == 0
+        check(ok, f"(t) host process {i} of {n_proc} exits 0 (exit {p.returncode})"
+              + ("" if ok else f": {stderr.strip()[-2000:]}"))
+        if ok:
+            shares.append(json.loads(stdout.strip().splitlines()[-1]))
+    done = sorted(f for f in os.listdir(out) if f.endswith(".npz"))
+    by_rank = {}
+    same = True
+    for path in slides:
+        stem = os.path.splitext(os.path.basename(path))[0]
+        f = os.path.join(out, stem + ".npz")
+        if not os.path.exists(f):
+            same = False
+            continue
+        got = np.load(f)
+        by_rank.setdefault(int(got["rank"]), []).append(stem)
+        same = same and np.array_equal(got["probs"], want[path])
+    union = sorted(sl for sh in shares for sl in sh["slides"])
+    check(len(shares) == n_proc and union == sorted(slides) and len(done) == HOST_SLIDES
+          and all(sh["count"] == n_proc for sh in shares),
+          f"(t) {HOST_SLIDES} slides over {n_proc} processes: each classified once"
+          f" (ranks' slides {dict(sorted(by_rank.items()))})")
+    check(same, f"(t) the union's probabilities ({HOST_SLIDES} x {len(coords)} patches) equal"
+          " one process's bit for bit")
+    print(f"    (t) {n_proc} processes on one card under a coordinator: {wall:.1f} s of wall"
+          f" from launch to exit (slides written and the one-process reference in"
+          f" {t1 - t0:.1f} s) ({card})")
+    return {"processes": n_proc, "wall_s": wall, "ranks": by_rank}
+
+
+def dgi_on(devices, slides) -> tuple[dict, list, float]:
+    """train_dgi_multi over ``devices`` (DGI_EPOCHS, seed SEED), and the
+    trained DGI's loss on the padded graphs with a seeded corruption,
+    evaluated on the first device: (state, embeddings, loss)."""
+    import torch
+
+    from wsinsight_tpu_torch.insightlib import gnn
+    from wsinsight_tpu_torch.insightlib.cme import train_dgi_multi
+
+    state, z = train_dgi_multi(slides, hidden=64, out_dim=32, epochs=DGI_EPOCHS, seed=SEED,
+                               devices=devices)
+    dev = torch.device(devices[0])
+    model = gnn.DGI(slides[0]["X_normalized"].shape[1], hidden=64, out_dim=32).to(dev)
+    model.load_state_dict(state)
+    n_max = max(len(s["X_normalized"]) for s in slides) + 1
+    e_max = max(s["edge_index"].shape[1] for s in slides)
+    perm_rng = np.random.default_rng(SEED)
+    loss = 0.0
+    with torch.no_grad():
+        for s in slides:
+            g = gnn.pad_graph(s["X_normalized"], s["edge_index"], n_max, e_max)
+            perm = np.arange(n_max)
+            n = len(s["X_normalized"])
+            perm[:n] = perm_rng.permutation(n)
+            t = [torch.from_numpy(a).to(dev) for a in (g.x, g.x[perm], g.edges.astype(np.int64),
+                                                       g.edge_mask, g.node_mask)]
+            loss += float(model(*t)) / len(slides)
+    return state, z, loss
+
+
+def replica_phase(check, kernels, card, dev, handle, data, weights) -> dict:
+    """(t): the engines and the DGI on a device list naming the card twice,
+    against one replica; two host processes under a coordinator; and a
+    torch checkpoint converted to flax msgpack by `models convert`, then
+    classified. Returns its stats; its K1 and K2 launches under
+    "launches". Its data come from a generator of its own, so the phases
+    after it get the data they got before it was added."""
+    import pandas as pd
+    import torch
+    from click.testing import CliRunner
+
+    from wsinsight_tpu_torch.cli.cli import cli
+    from wsinsight_tpu_torch.engine import CellEngine, ClassifierEngine
+    from wsinsight_tpu_torch.insightlib import stats as wstats
+    from wsinsight_tpu_torch.insightlib.cme import prepare_slide_graph
+    from wsinsight_tpu_torch.parallel.mesh import resolve_devices
+    from wsinsight_tpu_torch.zoo import ModelHandle, get_registered_model
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 1)
+    stats = {"launches": {name: 0 for name in kernels.values()}}
+    found = resolve_devices()
+    print(f"(t) the default device list finds {len(found)} card(s):"
+          f" {', '.join(map(str, found))} ({card})")
+    check(len(found) == torch.cuda.device_count(),
+          f"(t) the default device list is every visible card ({torch.cuda.device_count()})")
+    pair = [dev, dev]
+
+    # ResNet34, (d)'s resident batches: two replicas against one
+    probs, rates = {}, {}
+    for mixed in (False, True):
+        for n, kw in ((1, dict(device=dev)), (2, dict(devices=pair))):
+            engine = ClassifierEngine(handle, mixed_precision=mixed, **kw)
+            engine.run_batch(data[0], BATCH)  # warm-up
+            torch.cuda.synchronize()
+            for fn in kernels:
+                fn.launches = 0
+            probs[mixed, n], secs = run_window(engine, data)
+            rates[mixed, n] = len(data) * BATCH / secs
+            counts = {name: fn.launches for fn, name in kernels.items()}
+            if n == 2:
+                for name, c in counts.items():
+                    stats["launches"][name] += c
+            if mixed and n == 2:
+                check(counts["fused_preprocess"] == 2 * len(data),
+                      f"(t) bf16 on two replicas: K1 launches {counts['fused_preprocess']}"
+                      f" (two per batch x {len(data)})")
+            del engine
+        mode = "bf16" if mixed else "parity"
+        print(f"    (t) ResNet34 {mode}, {len(data)} batches of B={BATCH}: one replica"
+              f" {rates[mixed, 1]:.1f} patches/s, two replicas on the card"
+              f" {rates[mixed, 2]:.1f} patches/s ({card})")
+    err = float(np.abs(probs[False, 2] - probs[False, 1]).max())
+    check(err <= 1e-5, f"(t) parity on two replicas vs one: max |dp| {err:.3g} (<= 1e-5)")
+    err16 = float(np.abs(probs[True, 2] - probs[False, 1]).max())
+    check(err16 <= 0.01, f"(t) bf16 on two replicas vs parity on one: max |dp| {err16:.3g}"
+          " (<= 0.01)")
+    stats["resnet34"] = {"patches_s": {f"{'bf16' if m else 'parity'}_{n}": r
+                                       for (m, n), r in rates.items()},
+                         "parity_max_abs": err, "bf16_vs_parity_max_abs": err16}
+    torch.cuda.empty_cache()
+
+    # CellViT-256 at (g)'s B=32: two replicas against one, parity
+    cell = get_registered_model("CellViT-256-x40")
+    ps = cell.config.patch_size_pixels
+    cells = rng.integers(0, 256, (4, CELL_BATCH, ps, ps, 3), dtype=np.uint8)
+    maps, k2, cell_rates = {}, {}, {}
+    for n, kw in ((1, dict(device=dev)), (2, dict(devices=pair))):
+        engine = CellEngine(cell, init_random=True, seed=SEED, **kw)
+        engine.run_batch(cells[0])  # warm-up
+        torch.cuda.synchronize()
+        for fn in kernels:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        outs = [engine.dispatch(engine.put(b)) for b in cells]
+        torch.cuda.synchronize()
+        cell_rates[n] = len(cells) * CELL_BATCH / (time.perf_counter() - t0)
+        counts = {name: fn.launches for fn, name in kernels.items()}
+        k2[n] = counts["window_attention"]
+        if n == 2:
+            for name, c in counts.items():
+                stats["launches"][name] += c
+        maps[n] = {k: v.cpu() for k, v in outs[0].items()}
+        del engine, outs
+    err = max(float((maps[2][k] - maps[1][k]).abs().max())
+              for k in ("nuclei_binary_map", "hv_map", "nuclei_type_map"))
+    check(err <= 1e-4, f"(t) CellViT-256 parity on two replicas vs one, B={CELL_BATCH}:"
+          f" max |d| of the maps {err:.3g} (<= 1e-4)")
+    check(k2[2] == 2 * k2[1] > 0, f"(t) K2 launches over {len(cells)} batches: two replicas"
+          f" {k2[2]}, one {k2[1]} (doubled)")
+    print(f"    (t) CellViT-256 parity, {len(cells)} batches of B={CELL_BATCH}: one replica"
+          f" {cell_rates[1]:.1f} patches/s, two replicas {cell_rates[2]:.1f} patches/s ({card})")
+    stats["cellvit_256"] = {"patches_s": cell_rates, "max_abs": err, "k2_launches": k2}
+    torch.cuda.empty_cache()
+
+    work = tempfile.TemporaryDirectory()
+    try:
+        # two host processes under a coordinator
+        stats["hosts"] = host_fanout(check, card, rng, dev, work.name)
+
+        # `models convert`: the torch checkpoint to flax msgpack, classified
+        msgpack = os.path.join(work.name, "resnet34.msgpack")
+        t0 = time.perf_counter()
+        res = CliRunner().invoke(cli, ["models", "convert", str(weights), msgpack,
+                                       "--architecture", "resnet34", "--num-classes", "2",
+                                       "--report"])
+        convert_s = time.perf_counter() - t0
+        check(res.exit_code == 0 and "mapping complete" in res.output,
+              f"(t) models convert --report: exit {res.exit_code},"
+              f" {res.output.strip().splitlines()[0] if res.output.strip() else ''}"
+              f" ({convert_s:.2f} s)")
+        if res.exit_code == 0:
+            direct = ClassifierEngine(handle, device=dev).run_batch(data[0], BATCH)
+            conv = ClassifierEngine(ModelHandle(name=handle.name, config=handle.config,
+                                                weights_path=msgpack), device=dev)
+            check(np.array_equal(conv.run_batch(data[0], BATCH), direct),
+                  f"(t) the converted msgpack's probabilities equal the state dict's bit for"
+                  f" bit (B={BATCH})")
+            del conv
+    finally:
+        work.cleanup()
+
+    # the DGI over [card, card] against ["cpu", "cpu"]: 3 graphs padded to 4
+    slides = []
+    for n, seed in ((30, 1), (25, 2), (20, 3)):
+        r = np.random.default_rng(seed)
+        xs, ys = np.meshgrid(np.arange(n) * 10.0, np.arange(n) * 10.0)
+        cx, cy = xs.ravel() + r.uniform(-2, 2, n * n), ys.ravel() + r.uniform(-2, 2, n * n)
+        p = r.dirichlet(np.ones(3), n * n)
+        df = pd.DataFrame({"minx": cx - 4, "miny": cy - 4, "width": 8, "height": 8,
+                           "prob_a": p[:, 0], "prob_b": p[:, 1], "prob_c": p[:, 2]})
+        slides.append(prepare_slide_graph(df, mpp_um_per_px=0.25, max_edge_len_um=4.0))
+    scaler = wstats.StandardScaler().fit(np.vstack([s["X"] for s in slides]))
+    for s in slides:
+        s["X_normalized"] = scaler.transform(s["X"]).astype(np.float32)
+    t0 = time.perf_counter()
+    card_state, card_z, card_loss = dgi_on(pair, slides)
+    torch.cuda.synchronize()
+    dgi_s = time.perf_counter() - t0
+    cpu_state, cpu_z, cpu_loss = dgi_on(["cpu", "cpu"], slides)
+    w_err = max(float((card_state[k] - cpu_state[k]).abs().max()
+                      / cpu_state[k].abs().max().clamp(min=1e-12)) for k in cpu_state)
+    z_err = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+                for a, b in zip(card_z, cpu_z))
+    l_err = abs(card_loss - cpu_loss) / max(abs(cpu_loss), 1e-12)
+    check(max(w_err, l_err) <= 1e-4,
+          f"(t) DGI on two card replicas vs two CPU ones, 3 graphs padded to 4,"
+          f" {DGI_EPOCHS} epochs: loss {card_loss:.6f} vs {cpu_loss:.6f} ({l_err:.3g}"
+          f" relative), weights {w_err:.3g} relative to each tensor's largest (<= 1e-4);"
+          f" embeddings {z_err:.3g}")
+    print(f"    (t) DGI {DGI_EPOCHS} epochs on two replicas of the card: {dgi_s:.2f} s ({card})")
+    stats["dgi"] = {"loss": [card_loss, cpu_loss], "weights_rel": w_err, "z_rel": z_err,
+                    "seconds": dgi_s}
+    stats["seconds"] = time.perf_counter() - t_phase
+    print(f"    (t) {stats['seconds']:.1f} s in all ({card})")
+    return stats
+
+
 def main() -> int:
     import torch
 
     # (a) ------------------------------------------------------------------
+    clock = PhaseClock()
+    clock("a")
     # (p) reads StarDist's stages from hot_stage_report(); the flag is read
     # when the port is first imported
     os.environ["WSINSIGHT_STREAM_PROFILE"] = "1"
@@ -3186,6 +3546,7 @@ def main() -> int:
     kernels = {fused_preprocess: "fused_preprocess", window_attention: "window_attention"}
 
     # (b) ------------------------------------------------------------------
+    clock("b")
     def build_host():  # runs beside nvcc
         start = time.perf_counter()
         jpeg = native_build.jpeg_available()
@@ -3218,6 +3579,7 @@ def main() -> int:
               " lossless twin of (j) decodes natively")
 
     # (c) ------------------------------------------------------------------
+    clock("c")
     handle = get_registered_model(MODEL)
     spec = TransformSpec.from_config(handle.config.transform)
     std = np.asarray(spec.std, np.float32)
@@ -3266,6 +3628,7 @@ def main() -> int:
         del x
 
     # (d) ------------------------------------------------------------------
+    clock("d")
     tmp = tempfile.TemporaryDirectory()
     _, weights = make_random_local_model("resnet34", 2, tmp.name, seed=SEED)
     handle = ModelHandle(name=MODEL, config=handle.config, weights_path=str(weights))
@@ -3296,7 +3659,7 @@ def main() -> int:
     # Device time per stage, one resident batch (CUDA events).
     x = engines[False].put(data[1])
     for mixed, engine in engines.items():
-        pre = _cuda_ms(lambda: engine._preprocess(x), reps=10)
+        pre = _cuda_ms(lambda: engine._preprocess(x[0]), reps=10)
         step = _cuda_ms(lambda: engine.dispatch(x), reps=10)
         t0 = time.perf_counter()
         for _ in range(5):
@@ -3308,6 +3671,7 @@ def main() -> int:
     print(f"    {_smi('clocks.sm,power.draw,temperature.gpu')} (SM clock, power, temperature)")
 
     # (e) ------------------------------------------------------------------
+    clock("e")
     print("(e) results")
     cpu_engine = ClassifierEngine(handle, device="cpu")
     cpu = cpu_engine.run_batch(data[0, :8], 8)
@@ -3325,12 +3689,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # (m) ------------------------------------------------------------------
+    clock("m")
     zoo = zoo_phase(check, kernels, card, (handle, data, engines[False], probs[False]))
+
+    # (t) ------------------------------------------------------------------
+    clock("t")
+    replicas = replica_phase(check, kernels, card, dev, handle, data, weights)
     tmp.cleanup()
     del data, engines
     torch.cuda.empty_cache()
 
     # (f) ------------------------------------------------------------------
+    clock("f")
     print("(f) K2 vs its plain version")
     k2 = {"max_abs_err": 0.0, "shapes": []}
     for name, shape, dim, heads, window, rel, kb, dtypes, valid in K2_SHAPES:
@@ -3370,6 +3740,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # (g), (h) -------------------------------------------------------------
+    clock("g+h")
     cell = {}
     for phase, (model_name, per_batch) in zip("gh", CELL_MODELS):
         stats, engines = resident_cell_phase(check, kernels, rng, dev, phase, "i", model_name,
@@ -3383,9 +3754,11 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # (j) ------------------------------------------------------------------
+    clock("j")
     slide = slide_phase(check, kernels, card, rng)
 
     # (l) ------------------------------------------------------------------
+    clock("l")
     for engine in slide_engines.values():
         engine.model.to(dev)
     nuclei_tmp = tempfile.TemporaryDirectory()
@@ -3394,22 +3767,28 @@ def main() -> int:
     cell_slide = cell_slide_phase(check, kernels, card, rng, slide_engines, nuclei_slide)
 
     # (s) ------------------------------------------------------------------
+    clock("s")
     stream = stream_phase(check, kernels, card, slide_engines, nuclei_slide, cell_slide)
     del slide_engines, cell_slide["drawn_maps"]
     torch.cuda.empty_cache()
 
     # (o) ------------------------------------------------------------------
+    clock("o")
     hovernet = hovernet_phase(check, kernels, card, nuclei_slide)
 
     # (p) ------------------------------------------------------------------
+    clock("p")
     stardist = stardist_phase(check, kernels, card, nuclei_slide)
 
     # (q) ------------------------------------------------------------------
+    clock("q")
     virchow = virchow_phase(check, kernels, card, rng, dev, nuclei_slide)
 
     # (r) ------------------------------------------------------------------
+    clock("r")
     analytics = analytics_phase(check, kernels, card, rng, dev, nuclei_slide)
     nuclei_tmp.cleanup()
+    print(f"phase seconds (host clock): {json.dumps(clock.seconds())} ({card})")
 
     if check.failed:
         print(f"chip_smoke: {len(check.failed)} check(s) failed", file=sys.stderr)
@@ -3424,13 +3803,14 @@ def main() -> int:
     k2_launches = sum(st["launches"]["window_attention"]
                       for stats in cell.values() for st in stats.values())
     k2_launches += cell_slide["k2_launches"] + stream["k2_launches"] + virchow["k2_launches"]
-    k2_launches += analytics["hoptimus"]["k2_launches"]
+    k2_launches += analytics["hoptimus"]["k2_launches"] + replicas["launches"]["window_attention"]
     record = {"kernels": [{
         "name": "fused_preprocess",
         "route": "cuda",
         "source": "wsinsight_tpu_torch/ops/csrc/fused_preprocess.cu",
         "replaces": "wsinsight_tpu/ops/pallas_preprocess.py:38",
-        "launches": launches["fused_preprocess"] + slide["k1_launches"] + sum(
+        "launches": launches["fused_preprocess"] + slide["k1_launches"]
+        + replicas["launches"]["fused_preprocess"] + sum(
             st["launches"]["fused_preprocess"] for name, model in zoo.items()
             if not name.startswith("precision") for st in (model["parity"], model["bf16"])),
         "max_abs_err": max_abs_err,
@@ -3467,6 +3847,7 @@ def main() -> int:
     print(json.dumps({"stardist": stardist}))
     print(json.dumps({"virchow": virchow}))
     print(json.dumps({"analytics": analytics}))
+    print(json.dumps({"replicas": replicas}, default=str))
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -582,20 +582,26 @@ def test_cli_refuses_multi_host(monkeypatch, tmp_path):
     monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1234")
     res = CliRunner().invoke(cli, ["patch", "-i", str(tmp_path), "-o", str(tmp_path / "r"),
                                    "-m", "breast-tumor-resnet34.tcga-brca"])
-    assert res.exit_code == 2 and "Queue 1, item 10" in res.output
+    # a coordinator without the process count and rank is a usage error
+    assert res.exit_code == 2
+    assert "JAX_NUM_PROCESSES" in res.output and "JAX_PROCESS_ID" in res.output
 
 
 def test_cli_commands_and_options_match_jax():
-    """The port's patch / infer / run / hplot / cme take the JAX commands'
-    options, names and defaults alike; only `models` is not ported."""
+    """The port's patch / infer / run / hplot / cme / models (and models'
+    ls / convert) take the JAX commands' options, names and defaults alike."""
     from wsinsight_tpu.cli.cli import cli as jax_cli
     from wsinsight_tpu_torch.cli.cli import cli as port_cli
 
-    assert set(port_cli.commands) == {"patch", "infer", "run", "hplot", "cme"}
-    assert set(jax_cli.commands) - set(port_cli.commands) == {"models"}
-    for name in port_cli.commands:
-        ours = {p.name: (p.opts, p.default) for p in port_cli.commands[name].params}
-        theirs = {p.name: (p.opts, p.default) for p in jax_cli.commands[name].params}
+    assert set(port_cli.commands) == {"patch", "infer", "run", "hplot", "cme", "models"}
+    assert set(jax_cli.commands) == set(port_cli.commands)
+    pairs = [(port_cli.commands[n], jax_cli.commands[n], n) for n in port_cli.commands]
+    pairs += [(port_cli.commands["models"].commands[n], jax_cli.commands["models"].commands[n],
+               f"models {n}") for n in ("ls", "convert")]
+    assert set(port_cli.commands["models"].commands) == {"ls", "convert"}
+    for port_cmd, jax_cmd, name in pairs:
+        ours = {p.name: (p.opts, p.default) for p in port_cmd.params}
+        theirs = {p.name: (p.opts, p.default) for p in jax_cmd.params}
         assert ours == theirs, name
 
 

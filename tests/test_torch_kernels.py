@@ -500,3 +500,52 @@ def test_window_attention_rejects_bad_input(cuda_device):
     with pytest.raises(ValueError):  # real extent past the grid
         window_attention(qkv, 16, 14, 0.1, rh, rw, valid=(16, 29))
     assert window_attention.launches == before
+
+
+# ---------------------------------------------------------------------------
+# K1 and K2 per replica: engines over a device list naming the card twice
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_k1_per_replica_on_a_device_list(cuda_device, tmp_path):
+    """A bf16 ClassifierEngine on ["cuda:0", "cuda:0"]: one K1 launch per
+    replica, and each replica's rows bit for bit one replica's run of the
+    same block."""
+    from wsinsight_tpu_torch.engine import ClassifierEngine
+    from wsinsight_tpu_torch.zoo import load_local_model, make_random_local_model
+
+    handle = load_local_model(*make_random_local_model("resnet34", 2, tmp_path, seed=1,
+                                                       patch_size_pixels=350))
+    x = _batch(16, 350, seed=4)
+    two = ClassifierEngine(handle, mixed_precision=True, devices=["cuda:0", "cuda:0"])
+    one = ClassifierEngine(handle, mixed_precision=True, device=cuda_device)
+    assert two.n_devices == 2 and two.device == cuda_device
+    before = fused_preprocess.launches
+    got = two.run_batch(x, 15)
+    assert fused_preprocess.launches - before == 2
+    want = np.concatenate([one.run_batch(x[:8], 8), one.run_batch(x[8:], 8)])[:15]
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_k2_per_replica_on_a_device_list(cuda_device, tmp_path):
+    """A CellViT-256 CellEngine on ["cuda:0", "cuda:0"]: twice one replica's
+    K2 launches per batch, the maps within 1e-4 of one replica's, gathered
+    on the first device."""
+    from wsinsight_tpu_torch.engine import CellEngine
+    from wsinsight_tpu_torch.zoo import load_local_model, make_random_local_model
+
+    handle = load_local_model(*make_random_local_model("cellvit-256", 6, tmp_path, seed=2,
+                                                       patch_size_pixels=128))
+    x = _batch(4, 128, seed=5)
+    one = CellEngine(handle, device=cuda_device)
+    two = CellEngine(handle, devices=["cuda:0", "cuda:0"])
+    before = window_attention.launches
+    want = one.run_batch(x)
+    per_batch = window_attention.launches - before
+    got = two.run_batch(x)
+    assert per_batch > 0 and window_attention.launches - before == 3 * per_batch
+    for key, value in got.items():
+        assert value.device == cuda_device, key
+        torch.testing.assert_close(value, want[key], rtol=0, atol=1e-4, msg=key)

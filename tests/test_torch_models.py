@@ -176,6 +176,8 @@ PORT_MODULES = (
     "insightlib", "insightlib.helpers", "insightlib.voronoi", "insightlib.voronoi_exact",
     "insightlib.hplot", "insightlib.gnn", "insightlib.cme", "insightlib.foundation",
     "insightlib.stats", "cli.hplot", "cli.cme",
+    # the devices, multi-host runs and the models command
+    "parallel.mesh", "parallel.multihost", "cli.models_cmd",
 )
 
 

@@ -1,8 +1,10 @@
 """Top-level click group (reference: wsinsight/cli/cli.py:22-55).
 
-Counterpart of wsinsight_tpu/cli/cli.py with the ``patch``, ``infer``,
-``run``, ``hplot`` and ``cme`` commands; ``models`` and multi-host runs wait
-for ROADMAP.md Queue 1 item 10.
+Counterpart of wsinsight_tpu/cli/cli.py: the ``patch``, ``infer``, ``run``,
+``hplot``, ``cme`` and ``models`` commands. With a coordinator set
+(``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``) the
+process joins the group before any command runs, and ``infer`` runs its
+share of the slides (parallel/multihost.py).
 """
 
 from __future__ import annotations
@@ -13,7 +15,6 @@ import os
 import click
 
 from .._version import __version__
-from ..errors import not_ported
 from ..wsi import set_backend
 
 
@@ -45,10 +46,15 @@ def cli(backend: str | None = None, log_level: str = "info") -> None:
         format="%(asctime)s - %(levelname)s - %(module)s:%(lineno)d - %(message)s",
         level=levels[log_level],
     )
-    # The JAX package fans slides out over hosts when a coordinator is set;
-    # the port would run every slide on every host instead.
+    # Multi-host: join the group before any command runs; the runner's own
+    # call stays as an idempotent backstop for API users.
     if os.getenv("JAX_COORDINATOR_ADDRESS"):
-        raise click.UsageError(not_ported("multi-host runs (JAX_COORDINATOR_ADDRESS)", 10))
+        from ..parallel.multihost import MultiHostUsageError, maybe_initialize_distributed
+
+        try:
+            maybe_initialize_distributed()
+        except MultiHostUsageError as err:
+            raise click.UsageError(str(err)) from err
     if backend is not None:
         set_backend(backend)
 
@@ -64,3 +70,7 @@ cli.add_command(patch)
 cli.add_command(infer)
 cli.add_command(hplot)
 cli.add_command(cme)
+
+from .models_cmd import models_cmd  # noqa: E402
+
+cli.add_command(models_cmd)

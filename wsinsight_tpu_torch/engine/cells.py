@@ -41,19 +41,19 @@ import tqdm
 
 from ..models import create_model
 from ..ops.preprocess import TransformSpec, make_preprocess_fn, yuv420_to_rgb
-from ..parallel.mesh import pad_to_multiple, resolve_device
 from ..uri_path import URIPath
 from ..utils.workers import governed_workers
 from ..zoo import ModelHandle, randomize_cell_model
 from .data import Batch, PatchBatchSource
-from .runner import precision_allows_tf32, tf32_flags
+from .runner import Replicated, precision_allows_tf32, tf32_flags
 from .stitch import TileRemapStitcher
 
 logger = logging.getLogger(__name__)
 
 
-class CellEngine:
-    """(preprocess -> CellViT or HoVer-Net forward) step on one device.
+class CellEngine(Replicated):
+    """(preprocess -> CellViT or HoVer-Net forward) step, one replica per
+    device.
 
     Parity mode (the default) computes in float32 with TF32 off for matmuls
     and cuDNN convolutions; WSINSIGHT_PRECISION="default" allows TF32, set
@@ -65,6 +65,9 @@ class CellEngine:
     (``seed``) instead of loading ``model_info``'s checkpoint, so a full-size
     SAM-H needs no file; the same seed gives the same weights on every
     device.
+
+    The devices, the replicas, the split of a batch and the gather of the
+    maps onto the first device are ``runner.Replicated``'s.
     """
 
     def __init__(
@@ -75,10 +78,9 @@ class CellEngine:
         init_random: bool = False,
         device: str | torch.device | None = None,
         seed: int = 0,
+        devices: list[str | torch.device] | None = None,
     ):
         self.allow_tf32 = precision_allows_tf32()
-        self.device = resolve_device(device)
-        self.n_devices = 1  # one device in this slice; max_devices has nothing to cut
         cfg = model_info.config
         self.config = cfg
         self.mixed_precision = mixed_precision
@@ -90,40 +92,23 @@ class CellEngine:
             randomize_cell_model(model, seed)
         else:
             model.load_state_dict(model_info.load_state_dict(model), strict=True)
-        self.model = model.to(self.device)
+        self._place(model, devices, device, max_devices)
         self._preprocess = make_preprocess_fn(TransformSpec.from_config(cfg.transform),
                                               compute_dtype)
 
-    def pad_batch(self, n: int) -> int:
-        """Global batch size: requested size rounded up to the device count."""
-        return pad_to_multiple(n, self.n_devices)
-
-    def _step(self, batch_u8: torch.Tensor) -> dict[str, torch.Tensor]:
+    def _step(self, batch_u8: torch.Tensor, replica: int = 0) -> dict[str, torch.Tensor]:
         with torch.inference_mode(), tf32_flags(self.allow_tf32):
             if batch_u8.dim() == 3:
                 # YUV 4:2:0 wire (WSINSIGHT_WIRE=yuv420): RGB is rebuilt on
                 # the device; the rank says which format came.
                 batch_u8 = yuv420_to_rgb(batch_u8).to(torch.uint8)
-            return self.model(self._preprocess(batch_u8))
-
-    def put(self, images_u8: np.ndarray) -> torch.Tensor:
-        """Host -> device copy of a (B, H, W, 3) uint8 batch, or of a
-        (B, H*3/2, W) batch on the YUV 4:2:0 wire: pinned and non-blocking on
-        CUDA, so it returns before the copy ends."""
-        host = torch.from_numpy(np.ascontiguousarray(images_u8))
-        if self.device.type != "cuda":
-            return host.to(self.device)
-        return host.pin_memory().to(self.device, non_blocking=True)
-
-    def dispatch(self, images: torch.Tensor) -> dict[str, torch.Tensor]:
-        """Enqueue the step; returns the device maps without synchronising."""
-        return self._step(images)
+            return self.models[replica](self._preprocess(batch_u8))
 
     def run_batch(self, images_u8: np.ndarray) -> dict[str, torch.Tensor]:
         """(B, P, P, 3) uint8 (or the YUV wire's (B, P*3/2, P)) -> the
-        model's output dict, on the device: channel-first float32 maps cropped
-        to the halo interior and the tissue logits."""
-        return self._step(self.put(images_u8))
+        model's output dict, on the first device: channel-first float32 maps
+        cropped to the halo interior and the tissue logits."""
+        return self.dispatch(self.put(images_u8))
 
 
 def _cell_wire() -> str | None:

@@ -523,9 +523,11 @@ class PatchBatchSource:
         self._stop.set()
         # Join producers BEFORE closing handles: a decode thread still inside
         # the native reader while close() frees it would be a use-after-free
-        # (the C++ side also pins pages per call).
+        # (the C++ side also pins pages per call). Every producer is joined,
+        # not only those is_alive() reports: on a loaded host it has been
+        # seen to read False for a live thread.
         for t in self._producers:
-            if t.is_alive() and t is not threading.current_thread():
+            if t is not threading.current_thread():
                 t.join(timeout=30)
         self._producers.clear()
         for f in self._tls_files:

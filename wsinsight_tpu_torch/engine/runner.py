@@ -36,13 +36,14 @@ cross-slide source prefetch, resume and CSV schema
 into the patch file's ``/polygons`` group); the QuPath pseudo-models (TSV
 detections, GeoJSON detections, GeoJSON annotations: one-hot rows, no
 engine and no device); and the references overlay (``annot_prob_*``) on
-object-based rows. Multi-host fan-out (ROADMAP.md Queue 1, item 10) is not
-ported; each process runs every slide it is given.
+object-based rows. With a coordinator set (``parallel/multihost.py``) each
+process runs its round-robin share of the sorted slides.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import logging
@@ -67,7 +68,8 @@ from ..ops.stain import (
     default_target_stains,
     estimate_stains_from_batch,
 )
-from ..parallel.mesh import pad_to_multiple, resolve_device
+from ..parallel.mesh import device_batch_size, on_device, resolve_device, resolve_devices
+from ..parallel.multihost import maybe_initialize_distributed, shard_slides_for_host
 from ..uri_path import URIPath
 from ..utils.profiling import maybe_trace
 from ..utils.workers import governed_workers
@@ -109,8 +111,65 @@ def tf32_flags(allow: bool):
         matmul.allow_tf32, cudnn.allow_tf32 = saved
 
 
-class ClassifierEngine:
-    """(preprocess -> forward -> probs) step on one device.
+def _gather(outs: list, device: torch.device):
+    """The replicas' results (tensors, or dicts of them) concatenated in row
+    order on ``device``; a lone result as it is, with no copy."""
+    if len(outs) == 1:
+        return outs[0]
+    if isinstance(outs[0], dict):
+        return {k: _gather([o[k] for o in outs], device) for k in outs[0]}
+    return torch.cat([o.to(device, non_blocking=True) for o in outs])
+
+
+class Replicated:
+    """What both engines share: the devices (``resolve_devices``), one
+    replica of the model on each (``models``; ``model`` is the first; a
+    device named twice gets two), and the batch's way through them. ``put``
+    splits a batch into equal row blocks; ``dispatch`` runs block i's
+    ``_step`` on replica i under its device and gathers the results in row
+    order on the first device (``device``), as the JAX step's replicated
+    output does. One device is one block: the batch as it came, no copy."""
+
+    def _place(self, model: torch.nn.Module, devices, device, max_devices,
+               **to_kwargs) -> None:
+        self.devices = resolve_devices(devices, device, max_devices)
+        self.device = self.devices[0]
+        self.n_devices = len(self.devices)
+        self.model = model.to(self.device, **to_kwargs)
+        self.models = [self.model] + [copy.deepcopy(self.model).to(dev, **to_kwargs)
+                                      for dev in self.devices[1:]]
+
+    def pad_batch(self, n: int) -> int:
+        """Global batch size: requested size rounded up to the device count."""
+        return device_batch_size(n, self.devices)
+
+    def put(self, images_u8: np.ndarray):
+        """Host -> device copy of a (B, H, W, 3) uint8 batch, or of a
+        (B, H*3/2, W) batch on the YUV 4:2:0 wire: pinned and non-blocking on
+        CUDA, so it returns before the copy ends. Returns the list of equal
+        row blocks, block i on device i (the batch is pinned once)."""
+        host = torch.from_numpy(np.ascontiguousarray(images_u8))
+        if any(dev.type == "cuda" for dev in self.devices):
+            host = host.pin_memory()
+        if host.shape[0] % self.n_devices:
+            raise ValueError(f"a batch of {host.shape[0]} does not split over"
+                             f" {self.n_devices} devices; pad it to pad_batch()")
+        blocks = host.split(host.shape[0] // self.n_devices)
+        return [blk.to(dev, non_blocking=True) for blk, dev in zip(blocks, self.devices)]
+
+    def dispatch(self, images):
+        """Enqueue the step and return its result on the first device
+        without synchronising, so the next batch's decode and copy overlap
+        this batch's compute."""
+        outs = []
+        for i, (dev, block) in enumerate(zip(self.devices, images)):
+            with on_device(dev):
+                outs.append(self._step(block, i))
+        return _gather(outs, self.device)
+
+
+class ClassifierEngine(Replicated):
+    """(preprocess -> forward -> probs) step, one replica per device.
 
     Parity mode (the default) computes in float32 with TF32 off for both
     matmuls and cuDNN convolutions, since cuDNN's default TF32 convolutions
@@ -131,8 +190,13 @@ class ClassifierEngine:
     engine.
 
     ``w_est`` and ``w_def`` (numpy (3, 3) float32, both or neither) turn on
-    stain normalization; they live on the device as tensors of the step, so
-    ``set_stains`` swaps them per slide without rebuilding anything.
+    stain normalization; they live on every device as tensors of the step,
+    so ``set_stains`` swaps them per slide without rebuilding anything.
+
+    The devices are ``parallel.mesh.resolve_devices``'s: every visible card
+    by default, cut to ``max_devices``; ``device`` names one, ``devices`` a
+    list. Each holds a replica (``Replicated``); the probabilities come back
+    in row order on the first device.
     """
 
     def __init__(
@@ -143,16 +207,15 @@ class ClassifierEngine:
         w_def: np.ndarray | None = None,
         max_devices: int | None = None,
         device: str | torch.device | None = None,
+        devices: list[str | torch.device] | None = None,
     ):
         self.allow_tf32 = precision_allows_tf32()
-        self.device = resolve_device(device)
-        self.n_devices = 1  # one device in this slice; max_devices has nothing to cut
         cfg = model_info.config
         compute_dtype = torch.bfloat16 if mixed_precision else torch.float32
 
         model = create_model(cfg.architecture, cfg.num_classes, dtype=compute_dtype)
         model.load_state_dict(model_info.load_state_dict(model), strict=True)
-        self.model = model.to(self.device, memory_format=torch.channels_last)
+        self._place(model, devices, device, max_devices, memory_format=torch.channels_last)
 
         self.spec = TransformSpec.from_config(cfg.transform)
         if mixed_precision:
@@ -168,25 +231,19 @@ class ClassifierEngine:
         self._preprocess = preprocess
 
         self._use_stain = w_est is not None and w_def is not None
-        self._w_est = self._w_def = None
+        self._stains: list = [None] * self.n_devices
         if self._use_stain:
             self.set_stains(w_est, w_def)
 
-    def _stain_tensor(self, w: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(w, np.float32), device=self.device)
-
     def set_stains(self, w_est: np.ndarray, w_def: np.ndarray) -> None:
-        """Swap the per-slide Macenko matrices; nothing is rebuilt."""
+        """Swap the per-slide Macenko matrices on every device; nothing is
+        rebuilt."""
         if not self._use_stain:
             raise ValueError("engine was built without stain normalization")
-        self._w_est = self._stain_tensor(w_est)
-        self._w_def = self._stain_tensor(w_def)
+        self._stains = [tuple(torch.as_tensor(np.asarray(w, np.float32), device=dev)
+                              for w in (w_est, w_def)) for dev in self.devices]
 
-    def pad_batch(self, n: int) -> int:
-        """Global batch size: requested size rounded up to the device count."""
-        return pad_to_multiple(n, self.n_devices)
-
-    def _step(self, batch_u8: torch.Tensor) -> torch.Tensor:
+    def _step(self, batch_u8: torch.Tensor, replica: int = 0) -> torch.Tensor:
         with torch.inference_mode(), tf32_flags(self.allow_tf32):
             # A rank-3 batch is the planar YUV 4:2:0 wire (B, H*3/2, W),
             # rebuilt here; the rank says which format came, so a source that
@@ -194,33 +251,18 @@ class ClassifierEngine:
             x = yuv420_to_rgb(batch_u8) if batch_u8.dim() == 3 else batch_u8
             if self._use_stain:
                 x = deconvolution_based_normalization(x.to(torch.float32) + EPSILON,
-                                                      self._w_est, self._w_def)
+                                                      *self._stains[replica])
                 # The reference round-trips through uint8 PIL (data.py:300).
                 x = torch.clamp(torch.round(x), 0.0, 255.0)
             x = self._preprocess(x.to(torch.uint8))  # (B, oh, ow, 3) NHWC
             # NHWC permuted to NCHW is channels_last, without a copy.
-            logits = self.model(x.permute(0, 3, 1, 2))
+            logits = self.models[replica](x.permute(0, 3, 1, 2))
             if logits.dim() > 1 and logits.shape[1] > 1:
                 return torch.softmax(logits, dim=1)
             return torch.sigmoid(logits[:, 0])[:, None]
 
-    def put(self, images_u8: np.ndarray) -> torch.Tensor:
-        """Host -> device copy of a (B, H, W, 3) uint8 batch, or of a
-        (B, H*3/2, W) batch on the YUV 4:2:0 wire: pinned and non-blocking on
-        CUDA, so it returns before the copy ends."""
-        host = torch.from_numpy(np.ascontiguousarray(images_u8))
-        if self.device.type != "cuda":
-            return host.to(self.device)
-        return host.pin_memory().to(self.device, non_blocking=True)
-
-    def dispatch(self, images: torch.Tensor) -> torch.Tensor:
-        """Enqueue the step and return the device tensor of probabilities
-        without synchronising, so the next batch's decode and copy overlap
-        this batch's compute."""
-        return self._step(images)
-
     def run_batch(self, images_u8: np.ndarray, n_valid: int) -> np.ndarray:
-        return self._step(self.put(images_u8)).cpu().numpy()[:n_valid]
+        return self.dispatch(self.put(images_u8)).cpu().numpy()[:n_valid]
 
 
 def classify_slide(
@@ -457,6 +499,11 @@ def run_inference(
     if slide_paths:
         stems = {s.stem for s in slide_paths}
         patch_paths = [p for p in patch_paths if p.stem in stems]
+
+    # Multi-host fan-out: shard slides round-robin across processes (per-slide
+    # sharding; no collectives needed).
+    if maybe_initialize_distributed():
+        patch_paths = shard_slides_for_host(sorted(patch_paths))
 
     model_output_dir = results_dir / "model-outputs-csv"
     model_output_dir.mkdir(exist_ok=True)

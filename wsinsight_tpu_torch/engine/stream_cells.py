@@ -139,7 +139,8 @@ class _HostCopy:
         for h, t in zip(self._host, tensors):
             h.copy_(t, non_blocking=True)
         self._event = torch.cuda.Event()
-        self._event.record()
+        # on the stream the copies went to: the current one of their device
+        self._event.record(torch.cuda.current_stream(tensors[0].device))
 
     def numpy(self) -> list[np.ndarray]:
         if self._event is not None:
@@ -381,7 +382,7 @@ class BandedCellStitcher:
         ready = None  # the band's last scatter, for the flusher's stream to wait on
         if self.device.type == "cuda":
             ready = torch.cuda.Event()
-            ready.record()
+            ready.record(torch.cuda.current_stream(self.device))
         self._flush_q.put((b, bufs, counts, ready))
 
     def _flush_worker(self) -> None:
@@ -630,13 +631,20 @@ class BandedCellStitcher:
         return list(inst), list(probs), list(polys)
 
     def close(self) -> None:
+        """End every flusher before returning. Each flusher ends on the one
+        stop token it takes, so there is one per flusher, whatever
+        ``is_alive`` says: on a loaded host ``is_alive`` has been seen to
+        read False for a live flusher, which then never got its token. A
+        flusher finishes the band it holds and drops the queued ones, so the
+        wait is bounded by one band's flush. A second call does nothing."""
+        if self._closing:
+            return
         self._closing = True  # workers drop queued jobs instead of flushing
         self._bands.clear()
+        for _ in self._flushers:
+            self._flush_q.put(None)
         for t in self._flushers:
-            if t.is_alive():
-                self._flush_q.put(None)
-        for t in self._flushers:
-            t.join(timeout=30)
+            t.join()
 
 
 @functools.lru_cache(maxsize=16)

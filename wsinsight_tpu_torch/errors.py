@@ -45,15 +45,3 @@ class NoBackendException(WsinsightException):
 
 class BackendNotAvailable(WsinsightException):
     """Raised when the requested slide backend is not installed/usable."""
-
-
-# Queue 1 items of ROADMAP.md that parts of the JAX package wait for in the port.
-_QUEUE_1 = {
-    10: "scale and tooling",
-}
-
-
-def not_ported(what: str, item: int) -> str:
-    """The message for a part of the JAX package the port does not have yet,
-    naming the ROADMAP.md Queue 1 item it waits for."""
-    return f"{what} is not yet ported to torch (ROADMAP.md, Queue 1, item {item}: {_QUEUE_1[item]})"

@@ -11,8 +11,8 @@ in five phases:
    matrix powers: ring_h = reach(<=h) & ~reach(<=h-1), aggregated with one
    sparse matmul per hop.
 2. shared DGI/GCN encoder trained across slide graphs — torch and
-   ``torch.optim.Adam`` on the card (insightlib/gnn.py), graphs padded to a
-   common static shape, one device.
+   ``torch.optim.Adam`` on the cards (insightlib/gnn.py), graphs padded to a
+   common static shape, the graph batch split over the devices.
 3. cluster-count estimation: kNN graph + Leiden sweep over resolutions x
    repeats, winner by (stability NMI, modularity, silhouette) with a
    min-cluster-fraction filter (reference: :799-990). Leiden is the in-house
@@ -31,6 +31,7 @@ measured on has neither).
 
 from __future__ import annotations
 
+import copy
 import os
 import pickle
 from pathlib import Path
@@ -43,7 +44,7 @@ from scipy import sparse
 from tqdm import tqdm
 
 from .. import errors
-from ..parallel.mesh import resolve_device
+from ..parallel.mesh import resolve_device, resolve_devices
 from ..uri_path import URIPath
 from ..utils.profiling import hot_stage
 from ..wsi import _validate_wsi_directory, get_avg_mpp
@@ -261,7 +262,7 @@ def prepare_slide_graph(
 
 
 # ---------------------------------------------------------------------------
-# Phase 2: DGI training (torch, padded graphs, one device)
+# Phase 2: DGI training (torch, padded graphs, over the devices)
 # ---------------------------------------------------------------------------
 
 
@@ -275,6 +276,7 @@ def train_dgi_multi(
     max_nodes_cap: int = 16384,
     max_edges_cap: int = 131072,
     device: torch.device | str | None = None,
+    devices: List[torch.device | str] | None = None,
 ):
     """Train one shared DGI encoder over all slide graphs; return (state, Z_list).
 
@@ -286,10 +288,17 @@ def train_dgi_multi(
     drawn in the JAX package's order; the initial weights from ``DGI``'s
     seeded generator. Returns the trained state dict (on the host) and the
     embeddings.
+
+    The devices are ``parallel.mesh.resolve_devices``'s (every visible card
+    unless ``device`` or ``devices`` says otherwise). Over several, the graph
+    batch is padded by repetition to a multiple of their count and split
+    into shards, as the JAX package's mesh step takes it; one device gets
+    the whole batch as its one shard.
     """
     from .gnn import DGI, embed_full_graph, make_dgi_train_step, pad_graph, sample_subgraph
 
-    dev = resolve_device(device)
+    devs = resolve_devices(devices, device)
+    n_dev = len(devs)
 
     def _round_up(v, m):
         return -(-v // m) * m
@@ -318,10 +327,17 @@ def train_dgi_multi(
                 )
         return padded
 
-    def to_device(padded):
-        def put(arrays, dtype):
-            return torch.from_numpy(np.stack(arrays)).to(dev, dtype, non_blocking=True)
+    n_graphs = len(slides)
+    # pad the graph batch by repetition to a multiple of the device count
+    reps = [i % n_graphs for i in range(_round_up(n_graphs, n_dev))]
 
+    def put(arrays, dtype):
+        """The batch's stacked ``arrays`` in equal shards, shard i on device i."""
+        host = torch.from_numpy(np.stack(arrays)[reps])
+        return [blk.to(d, dtype, non_blocking=True)
+                for blk, d in zip(host.split(len(reps) // n_dev), devs)]
+
+    def to_device(padded):
         return (
             put([g.x for g in padded], torch.float32),
             put([g.edges for g in padded], torch.int64),
@@ -332,10 +348,14 @@ def train_dgi_multi(
                 torch.float32),
         )
 
+    def corrupt(x, perm):
+        return torch.take_along_dim(x, perm.to(x.device)[:, :, None], dim=1)
+
     padded = graph_batch()
-    model = DGI(padded[0].x.shape[1], hidden=hidden, out_dim=out_dim, seed=seed).to(dev)
+    model = DGI(padded[0].x.shape[1], hidden=hidden, out_dim=out_dim, seed=seed).to(devs[0])
+    replicas = [copy.deepcopy(model).to(d) for d in devs[1:]]
     opt = torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
-    train_step = make_dgi_train_step(model, opt)
+    train_step = make_dgi_train_step(model, opt, replicas)
 
     any_sampled = any(s["X_normalized"].shape[0] + 1 > max_nodes for s in slides)
     batch = to_device(padded)
@@ -355,8 +375,8 @@ def train_dgi_multi(
             if n_real > 1:
                 p[:n_real] = rng.permutation(n_real)
             perms.append(p)
-        perm = torch.from_numpy(np.stack(perms)).to(dev, non_blocking=True)
-        xc = torch.take_along_dim(x, perm[:, :, None], dim=1)
+        perm = put(perms, torch.int64)
+        xc = [corrupt(*a) for a in zip(x, perm)]
         train_step(x, xc, edges, em, nm, lm)
 
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
@@ -532,9 +552,10 @@ def cme_generation(
     ``use_hoptimus`` is set and no patch source is given, real crops are
     read from each slide around the detected cell centres. ``device`` runs
     the DGI training, the kNN graph and the silhouettes (the card unless the
-    caller asks for the CPU; ``WSINFER_FORCE_CPU`` too).
+    caller asks for the CPU; ``WSINFER_FORCE_CPU`` too); with none given the
+    DGI trains on every visible card, as the JAX package's does on its mesh.
     """
-    device = resolve_device(device)
+    dgi_device, device = device, resolve_device(device)
 
     if isinstance(cme_clustering_resolutions, str):
         cme_clustering_resolutions = [
@@ -682,7 +703,7 @@ def cme_generation(
         print("Phase 2/5: train shared DGI encoder")
         with hot_stage("cme.dgi"):
             _, z_list = train_dgi_multi(slides, hidden=hidden, out_dim=out_dim, epochs=epochs,
-                                        device=device)
+                                        device=dgi_device)
         _dump(z_list, cme_dgi_embeddings_file)
 
     # Phase 3: clustering.

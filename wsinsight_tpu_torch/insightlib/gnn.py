@@ -9,7 +9,9 @@ JAX one is XLA's ``segment_sum``, not a Pallas kernel). Module and parameter
 names are the flax ones (``encoder.conv1.lin``, ``encoder.prelu1``,
 ``weight``), so a flax ``DGI.init`` tree carried across by
 ``models.convert.flax_params_to_state_dict`` loads with ``strict=True``.
-One device trains; the JAX package's batch sharding over a mesh is not here.
+``make_dgi_train_step`` trains over several devices as the JAX package's
+step does over its mesh: the graph batch split into shards, the gradients
+summed, one Adam step, the weights copied back to every replica.
 ``pad_graph``, ``sample_subgraph`` and ``embed_full_graph`` are the JAX
 package's numpy, copied (``sample_subgraph`` gathers a BFS frontier's
 neighbours in one indexing step instead of a list of slices: the same
@@ -20,12 +22,14 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Mapping
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.mesh import on_device
 
 
 @dataclass
@@ -272,21 +276,46 @@ def embed_full_graph(state: Mapping[str, torch.Tensor], x: np.ndarray,
     return np.where(h > 0, h, a2 * h).astype(np.float32)
 
 
-def make_dgi_train_step(model: DGI, optimizer: torch.optim.Optimizer):
-    """DGI step over a *batch* of padded graphs on the model's device.
+def make_dgi_train_step(model: DGI, optimizer: torch.optim.Optimizer,
+                        replicas: Sequence[DGI] = ()):
+    """DGI step over a *batch* of padded graphs, split over ``model`` and
+    its ``replicas`` (its copies on further devices, in order).
 
-    Batch dims: x (B, N, F), x_corrupt (B, N, F), edges (B, 2, E) int64,
-    masks (B, ...), all tensors on that device. The loss is the mean of the
-    graphs' losses; one optimizer step. Returns the loss tensor (no host
-    synchronisation)."""
+    Every argument is the list of its equal shards along the batch, shard 0
+    on ``model``'s device and shard i on ``replicas[i - 1]``'s; a lone
+    tensor is one shard. Shard dims: x (B, N, F), x_corrupt (B, N, F),
+    edges (B, 2, E) int64, masks (B, ...). The loss is the mean of all the
+    graphs' losses: each device computes its shard's share of it and that
+    share's gradient, the gradients are summed on ``model``'s device (the
+    JAX step's psum over the mesh), ``optimizer`` steps there once, and the
+    new weights are copied to every replica. Returns the loss tensor (no
+    host synchronisation)."""
+    models = [model, *replicas]
+    params = list(model.parameters())
 
-    def train_step(x, x_corrupt, edges, edge_mask, node_mask, loss_mask):
-        optimizer.zero_grad(set_to_none=True)
-        losses = [model(x[i], x_corrupt[i], edges[i], edge_mask[i], node_mask[i], loss_mask[i])
+    def shard_loss(m, n_total, x, x_corrupt, edges, edge_mask, node_mask, loss_mask):
+        losses = [m(x[i], x_corrupt[i], edges[i], edge_mask[i], node_mask[i], loss_mask[i])
                   for i in range(x.shape[0])]
-        loss = torch.stack(losses).mean()
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+        return torch.stack(losses).mean() * (x.shape[0] / n_total)
+
+    def train_step(*batch):
+        shards = [list(a) if isinstance(a, (list, tuple)) else [a] for a in batch]
+        for m in models:
+            m.zero_grad(set_to_none=True)
+        n_total = sum(xs.shape[0] for xs in shards[0])
+        losses = []
+        for m, *shard in zip(models, *shards):
+            with on_device(shard[0].device):
+                losses.append(shard_loss(m, n_total, *shard))
+        torch.autograd.backward(losses)
+        with torch.no_grad():
+            for r in replicas:
+                for p, q in zip(params, r.parameters()):
+                    p.grad.add_(q.grad.to(p.device, non_blocking=True))
+            optimizer.step()
+            for r in replicas:
+                for p, q in zip(params, r.parameters()):
+                    q.copy_(p, non_blocking=True)
+        return sum(loss.detach().to(params[0].device) for loss in losses)
 
     return train_step

@@ -98,6 +98,242 @@ def flax_params_to_state_dict(
     return sd
 
 
+def _is_deconv_path(mod: str) -> bool:
+    """Torch-naming heuristic for ConvTranspose modules.
+
+    Matches explicit 'deconv'/'*upsampler' leaves AND an indexed position
+    directly inside an upsampler Sequential (e.g. 'decoder3_upsampler.3',
+    the terminal ConvTranspose) — but NOT the regular convs nested deeper
+    (e.g. 'decoder3_upsampler.0.conv').
+    """
+    parts = mod.split(".")
+    if "deconv" in parts[-1] or "upsampler" in parts[-1]:
+        return True
+    return parts[-1].isdigit() and len(parts) >= 2 and "upsampler" in parts[-2]
+
+
+def convert_with_template(
+    sd: Mapping[str, Any],
+    template: Mapping[str, Any],
+    strict: bool = True,
+    problems_out: list | None = None,
+) -> dict:
+    """Convert a torch state dict into the EXACT shape of a flax param tree
+    (the JAX package's function, numpy only).
+
+    ``template``'s nesting and leaf names drive the conversion
+    (``flax_template`` gives it without flax). Rules per torch leaf:
+
+    * target leaf ``kernel``: 4-D weights become conv (O,I,kh,kw)->(kh,kw,I,O)
+      or transposed-conv (I,O,kh,kw)->(kh,kw,I,O)+spatial flip — told apart
+      by the template leaf's shape (falling back to a name heuristic when
+      I == O makes both fit); 2-D weights transpose (O,I)->(I,O).
+    * target leaf ``scale`` (LayerNorm/GroupNorm): copied from torch
+      ``weight``.
+    * batch-norm leaves and direct parameters (cls_token, pos_embed,
+      rel_pos_*) copy verbatim.
+
+    Every converted leaf is float32. strict=True raises with a per-layer
+    report when any template leaf is unmatched or any torch tensor is left
+    over (num_batches_tracked is always ignored).
+    """
+    sd = _strip_wrapper_prefixes({k: np.asarray(v) for k, v in sd.items()})
+    sd = {k: v for k, v in sd.items() if not k.endswith("num_batches_tracked")}
+
+    # Flatten the template: dotted module path -> {leaf name: shape}
+    flat_template: dict[str, dict[str, tuple]] = {}
+
+    def walk(node: Mapping[str, Any], prefix: str) -> None:
+        for name, child in node.items():
+            path = f"{prefix}.{name}" if prefix else str(name)
+            if hasattr(child, "items"):
+                walk(child, path)
+            else:
+                mod, _, leaf = path.rpartition(".")
+                flat_template.setdefault(mod, {})[leaf] = tuple(np.shape(child))
+
+    walk(template, "")
+
+    converted: dict[str, dict[str, np.ndarray]] = {}
+    problems: list[str] = []
+
+    def place(mod: str, leaf: str, value: np.ndarray) -> None:
+        converted.setdefault(mod, {})[leaf] = value.astype(np.float32)
+
+    for key, w in sd.items():
+        mod, _, torch_leaf = key.rpartition(".")
+        leaves = flat_template.get(mod)
+        if leaves is None:
+            problems.append(f"torch module {mod!r} (from {key!r}) has no template match")
+            continue
+        if torch_leaf == "weight":
+            if "kernel" in leaves:
+                want = leaves["kernel"]
+                if w.ndim == 4:
+                    as_conv = np.transpose(w, (2, 3, 1, 0))
+                    as_deconv = np.transpose(w, (2, 3, 0, 1))[::-1, ::-1]
+                    conv_fits = as_conv.shape == want
+                    deconv_fits = as_deconv.shape == want
+                    if conv_fits and deconv_fits:
+                        # I == O: both layouts fit; decide by torch naming
+                        is_deconv = _is_deconv_path(mod)
+                        place(mod, "kernel", as_deconv if is_deconv else as_conv)
+                    elif deconv_fits:
+                        place(mod, "kernel", as_deconv)
+                    elif conv_fits:
+                        place(mod, "kernel", as_conv)
+                    else:
+                        problems.append(
+                            f"{key!r}: no conv layout of {w.shape} fits template {want}"
+                        )
+                elif w.ndim == 2:
+                    place(mod, "kernel", np.transpose(w, (1, 0)))
+                else:
+                    place(mod, "kernel", w)
+            elif "scale" in leaves:
+                place(mod, "scale", w)
+            elif "weight" in leaves:  # EvalBN keeps torch naming
+                place(mod, "weight", w)
+            else:
+                problems.append(f"{key!r}: template has no kernel/scale/weight leaf")
+        elif torch_leaf in leaves:
+            place(mod, torch_leaf, w)
+        else:
+            problems.append(f"{key!r}: leaf {torch_leaf!r} not in template {sorted(leaves)}")
+
+    # verify coverage + shapes
+    for mod, leaves in flat_template.items():
+        got = converted.get(mod, {})
+        for leaf, shape in leaves.items():
+            if leaf not in got:
+                problems.append(f"template leaf {mod}.{leaf} not filled from torch")
+            elif tuple(got[leaf].shape) != shape:
+                problems.append(
+                    f"{mod}.{leaf}: shape {got[leaf].shape} != template {shape}"
+                )
+    if problems_out is not None:
+        problems_out.extend(problems)
+    if problems and strict:
+        report = "\n  ".join(problems[:40])
+        raise ValueError(f"torch->flax conversion mismatches ({len(problems)}):\n  {report}")
+
+    # re-nest following the template structure
+    def rebuild(node: Mapping[str, Any], prefix: str) -> dict:
+        out: dict[str, Any] = {}
+        for name, child in node.items():
+            path = f"{prefix}.{name}" if prefix else str(name)
+            if hasattr(child, "items"):
+                out[name] = rebuild(child, path)
+            else:
+                mod, _, leaf = path.rpartition(".")
+                out[name] = converted.get(mod, {}).get(leaf, np.asarray(child))
+        return out
+
+    return rebuild(template, "")
+
+
+def conversion_report(sd: Mapping[str, Any], template: Mapping[str, Any]) -> dict:
+    """Per-layer mapping coverage of a torch state dict against a flax
+    template: how many template leaves filled, how many torch tensors used,
+    and every mismatch (the `wsinsight models convert --report` payload)."""
+    problems: list[str] = []
+    converted = convert_with_template(sd, template, strict=False, problems_out=problems)
+
+    def count_leaves(node) -> int:
+        if hasattr(node, "items"):
+            return sum(count_leaves(v) for v in node.values())
+        return 1
+
+    n_template = count_leaves(template)
+    clean_sd = _strip_wrapper_prefixes({k: np.asarray(v) for k, v in sd.items()})
+    n_torch = sum(1 for k in clean_sd if not k.endswith("num_batches_tracked"))
+    unfilled = sum(1 for pr in problems if "not filled" in pr)
+    return {
+        "template_leaves": n_template,
+        "template_filled": n_template - unfilled,
+        "torch_tensors": n_torch,
+        "problems": problems,
+        "ok": not problems,
+        "params": converted,
+    }
+
+
+def _flax_scopes() -> tuple[type, ...]:
+    """The port's module classes whose flax counterparts are modules of
+    their own, so that their parameters nest one level down in the flax
+    tree under the dotted path from the enclosing one. Every other module
+    (torch containers, ResNet blocks, HoVer-Net units, ``Mlp``,
+    ``PatchEmbed``, ``LayerScale``) has its parameters named with its dotted
+    path inside the enclosing scope: the classifiers' flax trees are flat,
+    ``name=f"{prefix}.conv1"``."""
+    from .cellvit import Conv2DBlock, Deconv2DBlock, UpsamplingBranch
+    from .hovernet import HoverDecoder, HoverDenseBlock, ResidualStage
+    from .vit import Attention, Block, ViTEncoder
+
+    return (ViTEncoder, Block, Attention, UpsamplingBranch, Conv2DBlock, Deconv2DBlock,
+            ResidualStage, HoverDenseBlock, HoverDecoder)
+
+
+def _flax_leaves(mod: torch.nn.Module, leaf: str, shape: tuple) -> tuple[str, tuple]:
+    """(flax leaf name, flax shape) of parameter ``leaf`` of a layer module:
+    the inverse of ``flax_params_to_state_dict``'s mapping."""
+    if leaf == "weight" and isinstance(mod, torch.nn.ConvTranspose2d):
+        return "kernel", (shape[2], shape[3], shape[0], shape[1])
+    if leaf == "weight" and isinstance(mod, torch.nn.Conv2d):
+        return "kernel", (shape[2], shape[3], shape[1], shape[0])
+    if leaf == "weight" and isinstance(mod, torch.nn.Linear):
+        return "kernel", (shape[1], shape[0])
+    if leaf == "weight" and isinstance(mod, torch.nn.LayerNorm):
+        return "scale", shape
+    return leaf, shape  # biases, batch-norm leaves
+
+
+_LAYERS = (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Linear, torch.nn.LayerNorm,
+           torch.nn.BatchNorm2d)
+
+
+def flax_template(architecture: str, num_classes: int, input_size: int | None = None,
+                  halo_size: int | None = None) -> dict:
+    """The flax ``params`` tree of a registry architecture, without flax:
+    its nesting, leaf names and leaf shapes, as ``model.init`` at
+    ``input_size`` (default 256 for cell models, 224 otherwise) gives them.
+    The port's module is built on the ``meta`` device (no weights
+    allocated: CellViT-SAM-H has 728.8 M parameters), and its state dict
+    mapped through the inverse of ``flax_params_to_state_dict``; the nesting
+    follows ``_flax_scopes``. Leaves are float32 zeros that take no memory
+    (broadcast views)."""
+    from . import create_model, is_cell_architecture
+
+    kwargs = {}
+    if is_cell_architecture(architecture):
+        kwargs["img_size"] = input_size or 256
+        if halo_size is not None:
+            kwargs["halo_size"] = halo_size
+    with torch.device("meta"):
+        model = create_model(architecture, num_classes, **kwargs)
+    scopes = {name for name, m in model.named_modules() if isinstance(m, _flax_scopes())}
+    zero = np.zeros((), np.float32)
+    tree: dict[str, Any] = {}
+    for key, t in model.state_dict(keep_vars=True).items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        path, _, leaf = key.rpartition(".")
+        parts = path.split(".") if path else []
+        node, start = tree, 0
+        for i in range(1, len(parts) + 1):
+            if ".".join(parts[:i]) in scopes:
+                node = node.setdefault(".".join(parts[start:i]), {})
+                start = i
+        rest = ".".join(parts[start:])
+        mod = model.get_submodule(path)
+        if rest and isinstance(mod, _LAYERS):
+            name, shape = _flax_leaves(mod, leaf, tuple(t.shape))
+            node.setdefault(rest, {})[name] = np.broadcast_to(zero, shape)
+        else:  # a raw parameter, of the scope itself or of a plain module in it
+            node[f"{rest}.{leaf}" if rest else leaf] = np.broadcast_to(zero, tuple(t.shape))
+    return tree
+
+
 def load_torch_weights(path: str | os.PathLike) -> dict[str, torch.Tensor]:
     """A torch checkpoint (.pt/.pth state dict, or TorchScript .pt/.ts) as a
     CPU state dict with wrapper prefixes stripped."""

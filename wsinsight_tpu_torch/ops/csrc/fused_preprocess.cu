@@ -58,6 +58,7 @@
 
 #include <cstdint>
 #include <cstring>
+#include <mutex>
 
 namespace {
 
@@ -370,24 +371,35 @@ __global__ void __maxnreg__(40) fused_preprocess_kernel(
   }
 }
 
-// cudaFuncSetAttribute once per instantiation: allow the device's whole
-// opt-in shared memory (occupancy follows each launch's own size).
+// cudaFuncSetAttribute once per instantiation and device (the attribute is
+// per device): allow the device's whole opt-in shared memory (occupancy
+// follows each launch's own size). Engines launch from one thread per card,
+// so the table is guarded.
+constexpr int kMaxDevices = 64;
+
 template <int TAPS, typename OutT>
 cudaError_t opt_in() {
-  static const cudaError_t err = [] {
-    int dev = 0, most = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  static std::mutex mu;
+  static bool done[kMaxDevices] = {};
+  static cudaError_t result[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (!done[dev]) {
+    int most = 0;
+    e = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     cudaFuncAttributes attr;
     if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fused_preprocess_kernel<TAPS, OutT>);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(fused_preprocess_kernel<TAPS, OutT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                most - (int)attr.sharedSizeBytes);
-    return e;
-  }();
-  return err;
+    result[dev] = e;
+    done[dev] = true;
+  }
+  return result[dev];
 }
 
 template <int TAPS, typename OutT>

@@ -248,7 +248,8 @@ def launch(lib, qkv, out, num_heads, window, scale, rh=None, rw=None, valid=None
         int(qkv.dtype == torch.bfloat16), hd,
         b, hp, wp, dim, num_heads, ah, aw, gh, gw,
     ]
-    tail = [_rounded_scale(scale, qkv.dtype), torch.cuda.current_stream().cuda_stream]
+    # The stream of qkv's device, not of whichever device is current.
+    tail = [_rounded_scale(scale, qkv.dtype), torch.cuda.current_stream(qkv.device).cuda_stream]
     with torch.cuda.device(qkv.device):
         if valid is None:
             err = lib.wsi_window_attention(*args, *tail)
