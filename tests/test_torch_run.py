@@ -206,6 +206,45 @@ def test_run_cohort_prefetch_and_resume(purple_slide, model_files, one_slide_run
     assert prefetched == [False, True]  # nothing classified again
 
 
+def test_classify_slide_spans_each_batch(purple_slide, model_files, monkeypatch):
+    """With spans on, classify_slide records per batch one ``engine.put``,
+    one ``engine.dispatch`` holding the replica's ``engine.step`` and its
+    ``classify.preprocess``, and one ``classify.fetch``; the decode pool's
+    ``decode.shard`` spans count every patch."""
+    import collections
+
+    from wsinsight_tpu_torch.engine import ClassifierEngine
+    from wsinsight_tpu_torch.engine.data import PatchBatchSource
+    from wsinsight_tpu_torch.engine.runner import classify_slide
+    from wsinsight_tpu_torch.utils import profiling
+    from wsinsight_tpu_torch.zoo import load_local_model
+
+    monkeypatch.setattr(profiling, "_PROF_ENABLED", True)
+    monkeypatch.setattr(profiling, "_BUF", collections.deque(maxlen=profiling._CAPACITY))
+    engine = ClassifierEngine(load_local_model(*model_files), device="cpu")
+    coords = np.array([(x, y) for y in (0, 350) for x in range(0, 1750, 350)])
+    src = PatchBatchSource.from_coords(str(purple_slide), coords, 350, batch_size=4,
+                                       num_threads=1)
+    try:
+        _, probs = classify_slide(engine, src)
+    finally:
+        src.close()
+    assert probs.shape == (10, 2) and src.num_batches == 3
+    spans = profiling.spans()
+    by_id = {s.id: s for s in spans}
+    count = collections.Counter(s.name for s in spans)
+    for name in ("engine.put", "engine.dispatch", "engine.step", "classify.preprocess",
+                 "classify.fetch"):
+        assert count[name] == 3, (name, count)
+    assert count["put.pin"] == 0 and count["put.copy"] == 3  # the CPU pins nothing
+    assert all(s.n == 4 * 350 * 350 * 3 for s in spans if s.name == "engine.put")
+    assert all(by_id[s.parent].name == "engine.dispatch" for s in spans if s.name == "engine.step")
+    assert all(by_id[s.parent].name == "engine.step"
+               for s in spans if s.name == "classify.preprocess")
+    assert sum(s.n for s in spans if s.name == "decode.shard") == 10
+    assert count["decode.wait"] >= 3
+
+
 @pytest.fixture(scope="module")
 def tissue_slide(tmp_path_factory):
     """A 2560 px JPEG slide at 0.25 um/px: three ellipses of tissue on glass

@@ -372,10 +372,16 @@ def test_plan_slide_stardist_times_stages_and_logs_counts(seeded_weights, slide,
         plan, ctx, *_ = plan_slide(URIPath(str(slide[0])), None, None, None, 100, 0.5,
                                    object_based=True, object_detection="stardist")
     ctx.slide.close()
-    stages = profiling.hot_stage_report()
+    report = profiling.hot_stage_report()
+    stages = {k: v for k, v in report.items() if k.startswith("stardist.")}
     assert sorted(stages) == [f"stardist.{k}" for k in (
         "candidates", "copy_in", "copy_out", "forward", "nms", "normalize", "read")]
     assert all(v > 0 for v in stages.values()), stages
+    # the plan's own spans hold them: StarDist's steps run inside plan.select
+    assert sorted(set(report) - set(stages)) == ["plan.open", "plan.polygonize", "plan.select",
+                                                 "plan.thumbnail", "plan.tissue_mask",
+                                                 "plan_slide"]
+    assert report["plan.select"] >= stages["stardist.forward"]
     counts = [r.stardist_counts for r in caplog.records if hasattr(r, "stardist_counts")]
     assert len(counts) == 1 and counts[0]["blocks"] == 1  # 2048 px: one block
     assert counts[0]["candidates"] >= counts[0]["interior"] >= counts[0]["kept"]

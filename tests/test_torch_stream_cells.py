@@ -447,3 +447,37 @@ def test_many_flushers_give_the_same_instances():
         assert len(a) == len(b) > 0
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x, y)
+
+
+def test_each_band_has_one_flush_span(monkeypatch):
+    """With spans on, each band enqueued has exactly one ``flush.band`` on a
+    flusher, whose parent is the band's ``flush.enqueue`` on the main
+    thread and which starts after it ends; the flushers' stages nest in
+    it; the bands' instance counts sum to the instances finalize returns."""
+    import collections
+    import threading
+
+    from wsinsight_tpu_torch.engine.stream_cells import BandedCellStitcher
+    from wsinsight_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(profiling, "_PROF_ENABLED", True)
+    monkeypatch.setattr(profiling, "_BUF", collections.deque(maxlen=profiling._CAPACITY))
+    _, got = _run_banded(BandedCellStitcher, num_flushers=2, device="cpu")
+    spans = profiling.spans()
+    by_id = {s.id: s for s in spans}
+    enqueued = {s.id: s for s in spans if s.name == "flush.enqueue"}
+    bands = [s for s in spans if s.name == "flush.band"]
+    main = threading.get_native_id()
+    assert len(enqueued) > 1 and {s.thread for s in enqueued.values()} == {main}
+    assert sorted(s.parent for s in bands) == sorted(enqueued)
+    assert sorted(s.n for s in enqueued.values()) == list(range(len(enqueued)))  # band indices
+    for band in bands:
+        assert band.thread != main and band.start_ns >= enqueued[band.parent].end_ns
+    assert sum(s.n for s in bands) == len(got[0]) > 0
+    extracts = [s for s in spans if s.name == "flush.extract_instances"]
+    assert extracts and all(by_id[s.parent].name == "flush.band" for s in extracts)
+    scatters = [s for s in spans if s.name == "accumulate.scatter_dispatch"]
+    assert scatters and all(by_id[s.parent].name == "stream.accumulate" for s in scatters)
+    joins = [s for s in spans if s.name == "finalize.join"]
+    assert len(joins) == 1 and [by_id[s.parent].name for s in enqueued.values()].count(
+        "finalize.join") >= 1

@@ -38,6 +38,7 @@ import numpy as np
 import numpy.typing as npt
 
 from ..uri_path import URIPath
+from ..utils.profiling import hot_stage
 from ..wsi import get_wsi_cls
 
 
@@ -283,6 +284,10 @@ class PatchBatchSource:
         return ds
 
     def _fetch_one(self, idx: int) -> np.ndarray:
+        with hot_stage("decode.shard", n=1):
+            return self._read_one(idx)
+
+    def _read_one(self, idx: int) -> np.ndarray:
         if self._use_hdf5_images:
             try:
                 arr = self._thread_images()[idx]
@@ -418,16 +423,17 @@ class PatchBatchSource:
             final = np.empty((n, rgb.shape[1] * 3 // 2, rgb.shape[2]), np.uint8)
 
         def shard(a: int, b: int):
-            r = self._slide.read_patches_array(
-                coords[a:b], 0, (dec_hw[1], dec_hw[0]), out[a:b], scale_denom=dec_scale
-            )
-            if r is None:
-                return None
-            if resize_to is not None:
-                pil_resize_native(out[a:b], resize_to, out=rgb[a:b])
-            if final is not rgb and rgb_to_yuv420(rgb[a:b], out=final[a:b]) is None:
-                return None
-            return True
+            with hot_stage("decode.shard", n=b - a):
+                r = self._slide.read_patches_array(
+                    coords[a:b], 0, (dec_hw[1], dec_hw[0]), out[a:b], scale_denom=dec_scale
+                )
+                if r is None:
+                    return None
+                if resize_to is not None:
+                    pil_resize_native(out[a:b], resize_to, out=rgb[a:b])
+                if final is not rgb and rgb_to_yuv420(rgb[a:b], out=final[a:b]) is None:
+                    return None
+                return True
 
         n_shards = min(self.num_threads, max(1, n // 4))
         bounds = np.linspace(0, n, n_shards + 1, dtype=int)
@@ -482,7 +488,8 @@ class PatchBatchSource:
         self._producers.append(t)
         t.start()
         while True:
-            item = q.get()
+            with hot_stage("decode.wait"):
+                item = q.get()
             if item is None:
                 break
             if isinstance(item, BaseException):

@@ -71,7 +71,7 @@ from ..ops.stain import (
 from ..parallel.mesh import device_batch_size, on_device, resolve_device, resolve_devices
 from ..parallel.multihost import maybe_initialize_distributed, shard_slides_for_host
 from ..uri_path import URIPath
-from ..utils.profiling import maybe_trace
+from ..utils.profiling import hot_stage, maybe_trace
 from ..utils.workers import governed_workers
 from ..wsi import _validate_wsi_directory
 from ..zoo import ModelHandle
@@ -148,24 +148,28 @@ class Replicated:
         (B, H*3/2, W) batch on the YUV 4:2:0 wire: pinned and non-blocking on
         CUDA, so it returns before the copy ends. Returns the list of equal
         row blocks, block i on device i (the batch is pinned once)."""
-        host = torch.from_numpy(np.ascontiguousarray(images_u8))
-        if any(dev.type == "cuda" for dev in self.devices):
-            host = host.pin_memory()
-        if host.shape[0] % self.n_devices:
-            raise ValueError(f"a batch of {host.shape[0]} does not split over"
-                             f" {self.n_devices} devices; pad it to pad_batch()")
-        blocks = host.split(host.shape[0] // self.n_devices)
-        return [blk.to(dev, non_blocking=True) for blk, dev in zip(blocks, self.devices)]
+        with hot_stage("engine.put", n=images_u8.nbytes):
+            host = torch.from_numpy(np.ascontiguousarray(images_u8))
+            if any(dev.type == "cuda" for dev in self.devices):
+                with hot_stage("put.pin"):
+                    host = host.pin_memory()
+            if host.shape[0] % self.n_devices:
+                raise ValueError(f"a batch of {host.shape[0]} does not split over"
+                                 f" {self.n_devices} devices; pad it to pad_batch()")
+            blocks = host.split(host.shape[0] // self.n_devices)
+            with hot_stage("put.copy"):
+                return [blk.to(dev, non_blocking=True) for blk, dev in zip(blocks, self.devices)]
 
     def dispatch(self, images):
         """Enqueue the step and return its result on the first device
         without synchronising, so the next batch's decode and copy overlap
         this batch's compute."""
-        outs = []
-        for i, (dev, block) in enumerate(zip(self.devices, images)):
-            with on_device(dev):
-                outs.append(self._step(block, i))
-        return _gather(outs, self.device)
+        with hot_stage("engine.dispatch"):
+            outs = []
+            for i, (dev, block) in enumerate(zip(self.devices, images)):
+                with on_device(dev), hot_stage("engine.step", n=len(block), device=dev):
+                    outs.append(self._step(block, i))
+            return _gather(outs, self.device)
 
 
 class ClassifierEngine(Replicated):
@@ -254,7 +258,8 @@ class ClassifierEngine(Replicated):
                                                       *self._stains[replica])
                 # The reference round-trips through uint8 PIL (data.py:300).
                 x = torch.clamp(torch.round(x), 0.0, 255.0)
-            x = self._preprocess(x.to(torch.uint8))  # (B, oh, ow, 3) NHWC
+            with hot_stage("classify.preprocess", device=x.device):
+                x = self._preprocess(x.to(torch.uint8))  # (B, oh, ow, 3) NHWC
             # NHWC permuted to NCHW is channels_last, without a copy.
             logits = self.models[replica](x.permute(0, 3, 1, 2))
             if logits.dim() > 1 and logits.shape[1] > 1:
@@ -281,7 +286,8 @@ def classify_slide(
 
     def drain() -> None:
         out, n_valid, coords = pending.popleft()
-        slide_probs.append(out.cpu().numpy()[:n_valid])
+        with hot_stage("classify.fetch"):
+            slide_probs.append(out.cpu().numpy()[:n_valid])
         slide_coords.append(coords[:n_valid])
         qbar.update(1)
 

@@ -307,6 +307,10 @@ class BandedCellStitcher:
                 pred_dict.get("tp", pred_dict.get("nuclei_type_map")))
         if any(m is None for m in maps):
             raise KeyError(f"prediction maps missing from {sorted(pred_dict)}")
+        with _stage("stream.accumulate"):
+            self._accumulate(maps, batch_coords, n_valid)
+
+    def _accumulate(self, maps: tuple, batch_coords: np.ndarray, n_valid) -> None:
         np_logits, hv, tp_logits = (torch.as_tensor(m, device=self.device) for m in maps)
 
         coords = np.asarray(batch_coords, np.int64)[:, :2] + self.halo
@@ -370,20 +374,22 @@ class BandedCellStitcher:
     def _enqueue_flush(self, b: int) -> None:
         if self._flush_err:
             raise self._flush_err[0]
-        bufs = self._bands.pop(b)
-        # The band's foreground counts are dispatched NOW, on the main
-        # thread's stream, and their copy started, so they have usually
-        # landed when a flusher picks the band up.
-        counts = None
-        if self._sparse_windows and self._band_origin(b) < self.h:
-            _, starts, sizes = self._window_specs(b)
-            with _stage("flush.counts_dispatch"):
-                counts = _HostCopy(self._window_counts(bufs[0], starts, sizes))
-        ready = None  # the band's last scatter, for the flusher's stream to wait on
-        if self.device.type == "cuda":
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(self.device))
-        self._flush_q.put((b, bufs, counts, ready))
+        with _stage("flush.enqueue", n=b) as span:
+            bufs = self._bands.pop(b)
+            # The band's foreground counts are dispatched NOW, on the main
+            # thread's stream, and their copy started, so they have usually
+            # landed when a flusher picks the band up.
+            counts = None
+            if self._sparse_windows and self._band_origin(b) < self.h:
+                _, starts, sizes = self._window_specs(b)
+                with _stage("flush.counts_dispatch"):
+                    counts = _HostCopy(self._window_counts(bufs[0], starts, sizes))
+            ready = None  # the band's last scatter, for the flusher's stream to wait on
+            if self.device.type == "cuda":
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(self.device))
+        # the band's span on the flusher is a child of this one
+        self._flush_q.put((b, bufs, counts, ready, span.id))
 
     def _flush_worker(self) -> None:
         stream = None
@@ -406,12 +412,20 @@ class BandedCellStitcher:
                     self._flush_q.task_done()
 
     def _flush_band(self, b: int, bufs: tuple, counts: _HostCopy | None = None,
-                    ready: "torch.cuda.Event | None" = None) -> None:
+                    ready: "torch.cuda.Event | None" = None, parent: int | None = None) -> None:
+        """Flush band b (span ``flush.band``, a child of the band's
+        ``flush.enqueue``, counting the band's instances)."""
+        with _stage("flush.band", parent=parent) as span:
+            span.n = self._flush_band_instances(b, bufs, counts, ready)
+
+    def _flush_band_instances(self, b: int, bufs: tuple, counts: _HostCopy | None,
+                              ready: "torch.cuda.Event | None") -> int:
+        """Band b's instances into ``_band_results``; returns their number."""
         np_b, hv_b, tp_b = bufs
         y0 = self._band_origin(b)
         y1 = min(y0 + self.band_h, self.h)
         if y1 <= y0:
-            return
+            return 0
         if ready is not None:
             # This thread's stream waits for the band's last scatter; the
             # buffers, made on the main stream, are marked used on this one
@@ -552,7 +566,7 @@ class BandedCellStitcher:
                 band_labels[:, x0:x1] = remap[labels]
 
         if not band_records:
-            return
+            return 0
         if local_next >= _MAX_IDS:
             raise StreamingCapacityError(
                 f"band {b}: {local_next} instances exceeds the device segment cap")
@@ -596,6 +610,7 @@ class BandedCellStitcher:
             # read at finalize.
             pending = _PendingBand(_HostCopy(sums, sum_counts), local_next, band_records)
         self._band_results.setdefault(b, []).append(pending)
+        return len(band_records)
 
     @staticmethod
     def _assemble_band(pending: _PendingBand):
@@ -614,17 +629,19 @@ class BandedCellStitcher:
         """Flush the remaining bands, wait for every flusher, and return
         aligned lists of (1, 4) [x, y, w, h] boxes, (1, K) class
         probabilities and (M, 2) polygons, band by band."""
-        for b in sorted(self._bands):
-            self._enqueue_flush(b)
-        self._flush_q.join()
+        with _stage("finalize.join"):
+            for b in sorted(self._bands):
+                self._enqueue_flush(b)
+            self._flush_q.join()
         if self._flush_err:
             raise self._flush_err[0]
-        results = [
-            r
-            for b in sorted(self._band_results)
-            for pending in self._band_results[b]
-            for r in self._assemble_band(pending)
-        ]
+        with _stage("finalize.assemble"):
+            results = [
+                r
+                for b in sorted(self._band_results)
+                for pending in self._band_results[b]
+                for r in self._assemble_band(pending)
+            ]
         if not results:
             return [], [], []
         inst, probs, polys = zip(*results)
@@ -866,11 +883,12 @@ def stream_slide(
     stitcher's threads while the next forwards run. ``it`` is an iterator
     of ``src`` already started."""
     with tqdm.tqdm(total=src.num_batches, desc="Inference", position=1, leave=False) as bar:
-        for batch in (iter(src) if it is None else it):
-            pred = engine.dispatch(engine.put(batch.images))
-            pred = {k: v for k, v in pred.items() if k != "tissue_types"}
-            stitcher.accumulate_batch(pred, batch.coords, n_valid=batch.n_valid)
-            bar.update(1)
+        for i, batch in enumerate(iter(src) if it is None else it):
+            with _stage("stream.batch", n=i):
+                pred = engine.dispatch(engine.put(batch.images))
+                pred = {k: v for k, v in pred.items() if k != "tissue_types"}
+                stitcher.accumulate_batch(pred, batch.coords, n_valid=batch.n_valid)
+                bar.update(1)
 
 
 def run_streaming_cell_inference(

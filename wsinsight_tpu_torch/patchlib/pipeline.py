@@ -327,19 +327,21 @@ def plan_slide(
     if len(thumbsize) != 2:
         raise ValueError(f"Length of 'thumbsize' must be 2 but got {len(thumbsize)}")
 
-    with contextlib.ExitStack() as on_failure:
-        slide = get_wsi_cls()(slide_path)
-        on_failure.callback(slide.close)
-        mpp = get_avg_mpp(slide_path)
+    with hot_stage("plan_slide") as span, contextlib.ExitStack() as on_failure:
+        with hot_stage("plan.open"):
+            slide = get_wsi_cls()(slide_path)
+            on_failure.callback(slide.close)
+            mpp = get_avg_mpp(slide_path)
         logger.info(f"slide WxH={slide.dimensions} mpp={mpp}")
 
         # Slide-space patch size: round(px * spacing / mpp) (reference: :96).
         patch_size = int(round(patch_size_px * patch_spacing_um_px / mpp))
         logger.info(f"slide-space patch size: {patch_size}")
 
-        thumb = slide.get_thumbnail(thumbsize)
-        if thumb.mode != "RGB":
-            thumb = thumb.convert("RGB")
+        with hot_stage("plan.thumbnail"):
+            thumb = slide.get_thumbnail(thumbsize)
+            if thumb.mode != "RGB":
+                thumb = thumb.convert("RGB")
 
         # Object/hole µm² thresholds become thumbnail-pixel counts via the
         # thumbnail's own MPP (reference: :107-112).
@@ -363,14 +365,16 @@ def plan_slide(
             "stardist_normalization_pmax": stardist_normalization_pmax,
         }
 
-        mask = _tissue_mask(thumb, thumbsize, slide_path, opts)
+        with hot_stage("plan.tissue_mask"):
+            mask = _tissue_mask(thumb, thumbsize, slide_path, opts)
         if not np.issubdtype(mask.dtype, np.bool_):
             raise TypeError(f"expected boolean segmentation array but got {mask.dtype}")
 
         downscale = tuple(d / t for d, t in zip(slide.dimensions, thumb.size))
-        polygonized = get_multipolygon_from_binary_arr(
-            mask.astype("uint8") * 255, scale=downscale
-        )
+        with hot_stage("plan.polygonize"):
+            polygonized = get_multipolygon_from_binary_arr(
+                mask.astype("uint8") * 255, scale=downscale
+            )
         if polygonized is None:
             logger.warning(f"no tissue found in {slide_path}")
             return None
@@ -380,9 +384,11 @@ def plan_slide(
             slide=slide, slide_path=slide_path, mpp=mpp,
             patch_size=patch_size, polygon=tissue_polygon, opts=opts,
         )
-        plan = _select_planner(opts)(ctx)
+        with hot_stage("plan.select"):
+            plan = _select_planner(opts)(ctx)
         if plan is None:
             return None
+        span.n = len(plan.coords)
         on_failure.pop_all()  # the plan's slide stays open for the caller
         return plan, ctx, thumb, contours, hierarchy
 
